@@ -1,0 +1,20 @@
+"""PyTorch + CUDA (Hopper) port of the Act3D + ChainedDiffuser serving path.
+
+A second package beside the JAX reference ``act3d_tpu``.  It imports
+``torch`` only — never ``jax``, ``flax`` or anything of ``act3d_tpu`` —
+and keeps the JAX package's public layouts (batch-major (B, L, E) tokens,
+camera-major row-major token order, ghost points as (B, N, 3), attention
+row stats as (B, L, 2H)) so the two can be compared like with like.
+
+Layout mirrors the JAX package: ``ops/``, ``kernels/`` (hand-written CUDA
+kernels from ``csrc/`` with their plain PyTorch versions), ``nn/``,
+``models/``, ``eval/`` and ``convert.py`` (flax params -> state_dict).
+
+Entry points (the model constructors, :class:`eval.actioner.Actioner`)
+default to ``device="cuda"`` and raise when no card is present; pass
+``device="cpu"`` explicitly to run the plain versions on the CPU.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,87 @@
+"""Build the CUDA sources of ``act3d_tpu_torch/csrc`` with nvcc and load
+them with ctypes.
+
+Each source is compiled on first use into a shared library with a plain
+C interface, under ``act3d_tpu_torch/_build/`` (listed in .gitignore),
+named by a hash of the source and the flags so an edited source rebuilds.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("fused_mha_fwd.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    if cuda_home:
+        candidates.insert(0, os.path.join(cuda_home, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every source not yet built, one nvcc per source, all started
+    together.  Returns {source: library path}; raises on a failed build.
+    The ptxas report (registers, shared memory, spills) of each build is
+    kept beside the library as ``<name>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {s: library_path(s) for s in sources}
+    todo = {s: p for s, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for s, p in todo.items():
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)]
+        procs[s] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for s, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        todo[s].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{s} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, todo[s])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, building it if needed."""
+    lib = _LOADED.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([source])[source]))
+        _LOADED[source] = lib
+    return lib

@@ -1,0 +1,178 @@
+"""ChainedDiffuser trajectory DDPM, sampling path (PyTorch).
+
+Counterpart of ``act3d_tpu/models/diffusion_planner.py``: two DDPM
+schedules (positions: scaled_linear; rotations: squaredcos_cap_v2), both
+predicting the clean sample; positions normalised to [-1, 1] by the
+gripper workspace bounds; rotations as ortho-6D.  As in the reference, the
+dataset-layout quaternion (xyzw) is fed to the wxyz-convention maths
+unchanged; the 6D parametrization is self-consistent under this
+relabelling, so outputs land back in dataset layout.
+
+:func:`compute_trajectory` encodes the observation once and runs the
+reverse process as a Python loop over the steps.  The training forward
+(noise at a random timestep, L1 loss) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from ..ops import rotations as R
+from ..ops.schedulers import make_ddpm_schedule
+from .diffusion_head import DiffusionHead
+
+
+class DiffusionPlanner(nn.Module):
+    def __init__(
+        self,
+        image_size=(256, 256),
+        embedding_dim: int = 120,
+        output_dim: int = 7,
+        num_vis_ins_attn_layers: int = 2,
+        num_query_cross_attn_layers: int = 6,
+        use_instruction: bool = False,
+        use_goal: bool = False,
+        use_goal_at_test: bool = True,
+        rotation_parametrization: str = "6D",
+        diffusion_timesteps: int = 100,
+        gripper_loc_bounds=((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)),
+        device="cuda",
+    ):
+        super().__init__()
+        if rotation_parametrization != "6D":
+            raise NotImplementedError("only the 6D rotation parametrization is ported")
+        dev = resolve_device(device)
+        self.output_dim = output_dim
+        self.internal_dim = output_dim + 2
+        self.use_instruction = use_instruction
+        self.use_goal = use_goal
+        self.use_goal_at_test = use_goal_at_test
+        self.diffusion_timesteps = diffusion_timesteps
+        self.register_buffer(
+            "gripper_loc_bounds",
+            torch.tensor(gripper_loc_bounds, dtype=torch.float32), persistent=False,
+        )
+        self.prediction_head = DiffusionHead(
+            image_size=image_size,
+            embedding_dim=embedding_dim,
+            output_dim=self.internal_dim,
+            num_vis_ins_attn_layers=num_vis_ins_attn_layers,
+            num_query_cross_attn_layers=num_query_cross_attn_layers,
+            use_instruction=use_instruction,
+            use_goal=use_goal,
+        )
+        self.to(dev)
+        self.pos_schedule = make_ddpm_schedule("scaled_linear", diffusion_timesteps, device=dev)
+        self.rot_schedule = make_ddpm_schedule("squaredcos_cap_v2", diffusion_timesteps,
+                                               device=dev)
+
+    def normalize_pos(self, pos):
+        lo, hi = self.gripper_loc_bounds
+        return (pos - lo) / (hi - lo) * 2.0 - 1.0
+
+    def unnormalize_pos(self, pos):
+        lo, hi = self.gripper_loc_bounds
+        return (pos + 1.0) / 2.0 * (hi - lo) + lo
+
+    def convert_rot(self, signal):
+        """(..., 3+4[+k]) pose with quaternion -> (..., 3+6[+k]) with 6D."""
+        rot = R.quaternion_to_matrix(R.normalise_quat(signal[..., 3:7]))
+        return torch.cat(
+            [signal[..., :3], R.ortho6d_from_rotation_matrix(rot), signal[..., 7:]], dim=-1
+        )
+
+    def unconvert_rot(self, signal):
+        """(..., 3+6[+k]) -> (..., 3+4[+k])."""
+        quat = R.matrix_to_quaternion(R.rotation_matrix_from_ortho6d(signal[..., 3:9]))
+        return torch.cat([signal[..., :3], quat, signal[..., 9:]], dim=-1)
+
+    def _normalize_pcd(self, pcd_obs):
+        # (B, ncam, 3, H, W): normalise the channel dim
+        return self.normalize_pos(pcd_obs.movedim(2, -1)).movedim(-1, 2)
+
+    def _prep_gripper(self, gripper):
+        g = torch.cat([self.normalize_pos(gripper[..., :3]), gripper[..., 3:]], dim=-1)
+        return self.convert_rot(g)
+
+    def encode(self, rgb_obs, pcd_obs, instruction, curr_gripper, goal_gripper):
+        """Observation encoding for sampling; grippers (B, 7) are raw poses,
+        normalised and rotation-converted here.  Returns (context, curr, goal)."""
+        pcd = self._normalize_pcd(pcd_obs)
+        curr = self._prep_gripper(curr_gripper)
+        goal = self._prep_gripper(goal_gripper)
+        context = self.prediction_head.encode_context(
+            rgb_obs, pcd, curr,
+            goal if self.use_goal else None,
+            instruction if self.use_instruction else None,
+        )
+        return context, curr, goal
+
+    def denoise_step(self, trajectory, trajectory_mask, timestep, context):
+        """One denoiser evaluation: the clean-sample prediction."""
+        return self.prediction_head.denoise(trajectory, trajectory_mask, timestep, context)
+
+
+@torch.no_grad()
+def compute_trajectory(
+    model: DiffusionPlanner,
+    trajectory_mask: torch.Tensor,  # (B, L) bool, True = padding
+    rgb_obs: torch.Tensor,
+    pcd_obs: torch.Tensor,
+    instruction: Optional[torch.Tensor],
+    curr_gripper: torch.Tensor,  # (B, 7)
+    goal_gripper: torch.Tensor,  # (B, 7)
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Full reverse diffusion; returns (B, L, 7) trajectories.
+
+    Noise comes from ``generator``, or from ``noise = (init_noise
+    (B, L, 9), step_noises (T, B, L, 9))`` so a test can feed the exact
+    numbers of another implementation.
+    """
+    b, length = trajectory_mask.shape
+    d = model.internal_dim
+    n_steps = model.diffusion_timesteps
+    dev = trajectory_mask.device
+    context, curr, goal = model.encode(rgb_obs, pcd_obs, instruction, curr_gripper,
+                                       goal_gripper)
+
+    # start pose at index 0; with use_goal_at_test the goal pose at the last
+    # valid index and everything after it held fixed
+    positions = torch.arange(length, device=dev)[None, :]
+    last_valid = (length - trajectory_mask.sum(dim=1) - 1)[:, None]
+    cond_data = torch.zeros(b, length, d, device=dev)
+    cond_data = torch.where((positions == 0)[..., None], curr[:, None, :], cond_data)
+    cond_mask = positions == 0
+    if model.use_goal_at_test:
+        cond_data = torch.where((positions == last_valid)[..., None], goal[:, None, :],
+                                cond_data)
+        cond_mask = cond_mask | (positions >= last_valid)
+    cond_mask = cond_mask[..., None].expand(b, length, d)
+
+    def randn():
+        return torch.randn(b, length, d, generator=generator, device=dev)
+
+    if noise is None:
+        trajectory = randn() + cond_data
+    else:
+        trajectory = noise[0] + cond_data
+    for i, t in enumerate(range(n_steps - 1, -1, -1)):
+        out = model.denoise_step(trajectory, trajectory_mask,
+                                 torch.full((b,), t, device=dev), context)
+        out = torch.where(cond_mask, cond_data, out)
+        if t == 0:
+            trajectory = out  # the final step keeps the raw prediction
+            break
+        eps = randn() if noise is None else noise[1][i]
+        pos = model.pos_schedule.step(out[..., :3], t, trajectory[..., :3], eps[..., :3])
+        rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
+        trajectory = torch.cat([pos, rot], dim=-1)
+
+    trajectory = model.unconvert_rot(trajectory)
+    return torch.cat([model.unnormalize_pos(trajectory[..., :3]), trajectory[..., 3:]],
+                     dim=-1)

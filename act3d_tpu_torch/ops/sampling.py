@@ -1,0 +1,67 @@
+"""Ghost-point sampling with static shapes (PyTorch).
+
+Counterpart of ``act3d_tpu/ops/sampling.py``.  The sphere sampler is the
+fixed-shape equivalent of rejection sampling: oversample 4x uniformly in
+the (bounds-clipped) cube, then keep the first N points inside the ball,
+in sampling order, by a stable sort of the rejected points to the back.
+
+Each sampler draws from an explicit ``torch.Generator``, or takes the
+uniforms ``u`` it would have drawn, so a test can feed both packages the
+same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["sample_uniform_cube", "sample_uniform_ball", "ghost_point_bounds"]
+
+_OVERSAMPLE = 4
+
+
+def sample_uniform_cube(
+    bounds: torch.Tensor,
+    num_points: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Uniform points in (..., 2, 3) [min, max] boxes -> (..., N, 3)."""
+    lo = bounds[..., 0, :]
+    hi = bounds[..., 1, :]
+    if u is None:
+        u = torch.rand(
+            lo.shape[:-1] + (num_points, 3), generator=generator,
+            device=bounds.device, dtype=torch.float32,
+        )
+    return lo[..., None, :] + u * (hi - lo)[..., None, :]
+
+
+def sample_uniform_ball(
+    center: torch.Tensor,
+    radius: float,
+    bounds: torch.Tensor,
+    num_points: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Uniform points in ball(center, radius) ∩ box(bounds) -> (..., N, 3).
+
+    ``u``, when given, holds the (..., 4N, 3) cube uniforms.
+    """
+    pts = sample_uniform_cube(bounds, _OVERSAMPLE * num_points, generator, u)
+    d2 = torch.sum((pts - center[..., None, :]) ** 2, dim=-1)
+    outside = (d2 >= radius * radius).to(torch.uint8)  # strict < inside
+    order = torch.argsort(outside, dim=-1, stable=True)[..., :num_points]
+    return torch.gather(pts, -2, order[..., None].expand(order.shape + (3,)))
+
+
+def ghost_point_bounds(
+    anchor: torch.Tensor, diameter: float, workspace_bounds: torch.Tensor
+) -> torch.Tensor:
+    """Anchor-centred cube of the given diameter clipped to the workspace:
+    (..., 3) anchors, (2, 3) bounds -> (..., 2, 3)."""
+    lo = torch.clamp(anchor - diameter / 2.0, workspace_bounds[0], workspace_bounds[1])
+    hi = torch.clamp(anchor + diameter / 2.0, workspace_bounds[0], workspace_bounds[1])
+    return torch.stack([lo, hi], dim=-2)

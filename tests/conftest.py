@@ -41,6 +41,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (full-model or multi-step)"
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
 def pytest_addoption(parser):

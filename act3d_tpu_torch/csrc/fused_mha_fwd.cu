@@ -1,8 +1,8 @@
 // Fused multi-head attention forward, float32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel act3d_tpu/kernels/attention.py::_mha_fwd_body
-// (plain and key-padding-masked variants; reached through fused_mha /
-// _fused_mha_fwd_impl).  Same contract:
+// (plain, key-padding-masked and the two dropout variants; reached through
+// fused_mha / _fused_mha_fwd_impl).  Same contract:
 //   q (B, L, E) already scaled and rotated, k/v (B, S, E), optional
 //   mask (B, S) bytes (non-zero = masked out), E = H * d.  Heads are the
 //   contiguous lane slices [h*d, (h+1)*d) of E, read in place: no
@@ -10,6 +10,10 @@
 //   fully masked row gets uniform weights, as on the TPU.
 //   out (B, L, E) = softmax(q k^T) v per head; stats (B, L, 2H) float32
 //   with the row max m at lane 2h and l = sum exp(s - m) at lane 2h+1.
+//   Dropout (rate > 0): l is summed before dropout, so the stats are the
+//   same with and without it; only kept keys enter the p v sum, and the
+//   row is scaled by 1 / ((1 - rate) l) at the end.  The keep mask comes
+//   from dropout_hash.cuh, keyed on absolute (seed, b, h, row, col).
 //
 // What bounds it on the H100 at the serving shapes: 4*L*S*E FLOPs per
 // call (q k^T and p v, two FLOPs per multiply-add) against 67 TFLOP/s of
@@ -17,6 +21,11 @@
 // ghost-point site L=3333, S=3126, E=60; plus L*S*H exponentials on the
 // special-function units (42 M at that site).  The bytes are small (q, k,
 // v are a few MB), so the kernel is bound by operations, not memory.
+// Dropout adds one hash per score: 11 integer instructions (two of them
+// 32-bit multiplies, dropout_hash.cuh) beside the score's 2d FMAs and one
+// exponential, i.e. L*S*H hashes, as many as there are exponentials
+// (e.g. 20.9 M at the training site L=3072, S=53, H=8, B=16).  The
+// no-dropout instantiation compiles the hash out (template flag).
 //
 // Design (simple and correct first; wgmma, TMA and padding d to 16 for
 // the tensor cores are later work):
@@ -42,13 +51,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kKeyTile = 64;
 constexpr float kMaskedScore = -1e30f;
 
-template <int DMAX>
+template <int DMAX, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
 fused_mha_fwd_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
@@ -56,7 +67,8 @@ fused_mha_fwd_kernel(const float* __restrict__ q,
                      const uint8_t* __restrict__ mask,
                      float* __restrict__ out,
                      float* __restrict__ stats,
-                     int L, int S, int H, int d, int tpr) {
+                     int L, int S, int H, int d, int tpr,
+                     uint32_t seed, uint32_t threshold, float inv_keep) {
   extern __shared__ float smem[];
   const int ds = d | 1;  // odd row stride
   float* k_s = smem;                   // [kKeyTile][ds]
@@ -82,6 +94,8 @@ fused_mha_fwd_kernel(const float* __restrict__ q,
   }
   float m = -INFINITY;
   float l = 0.f;
+  const uint32_t row_key =
+      DROPOUT ? act3d_dropout_row_key(seed, b, h, active ? row : 0) : 0u;
 
   const float* k_b = k + (size_t)b * S * E + h * d;
   const float* v_b = v + (size_t)b * S * E + h * d;
@@ -117,8 +131,9 @@ fused_mha_fwd_kernel(const float* __restrict__ q,
           for (int c = 0; c < DMAX; ++c) acc[c] *= scale;
           m = s;
         }
-        const float p = expf(s - m);
-        l += p;
+        float p = expf(s - m);
+        l += p;  // l is the sum before dropout
+        if (DROPOUT && !act3d_dropout_keep(row_key, s0 + j, threshold)) p = 0.f;
         const float* vj = v_s + j * ds;
 #pragma unroll
         for (int c = 0; c < DMAX; ++c) {
@@ -147,7 +162,7 @@ fused_mha_fwd_kernel(const float* __restrict__ q,
   }
 
   if (active && lane == 0) {
-    const float inv = 1.f / l;
+    const float inv = DROPOUT ? inv_keep / l : 1.f / l;
     float* o_row = out + ((size_t)b * L + row) * E + h * d;
 #pragma unroll
     for (int c = 0; c < DMAX; ++c) {
@@ -162,23 +177,32 @@ fused_mha_fwd_kernel(const float* __restrict__ q,
 template <int DMAX>
 void launch(const float* q, const float* k, const float* v,
             const uint8_t* mask, float* out, float* stats, int B, int L,
-            int S, int H, int d, int tpr, cudaStream_t stream) {
+            int S, int H, int d, int tpr, int dropout, uint32_t seed,
+            uint32_t threshold, float inv_keep, cudaStream_t stream) {
   const int rows_per_block = kThreads / tpr;
   const dim3 grid((L + rows_per_block - 1) / rows_per_block, H, B);
   const size_t smem = 2 * kKeyTile * (d | 1) * sizeof(float) + kKeyTile;
-  fused_mha_fwd_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      q, k, v, mask, out, stats, L, S, H, d, tpr);
+  if (dropout) {
+    fused_mha_fwd_kernel<DMAX, true><<<grid, kThreads, smem, stream>>>(
+        q, k, v, mask, out, stats, L, S, H, d, tpr, seed, threshold, inv_keep);
+  } else {
+    fused_mha_fwd_kernel<DMAX, false><<<grid, kThreads, smem, stream>>>(
+        q, k, v, mask, out, stats, L, S, H, d, tpr, 0u, 0u, 1.f);
+  }
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers of
-// contiguous tensors; mask may be null.  Returns cudaGetLastError() after
-// the launch (0 = success).
+// contiguous tensors; mask may be null.  dropout != 0 selects the dropout
+// instantiation with the keep threshold and 1/(1-rate) computed on the
+// host.  Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* mask,
                                        void* out, void* stats, int B, int L,
                                        int S, int H, int d, int tpr,
+                                       int dropout, unsigned int seed,
+                                       unsigned int threshold, float inv_keep,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
       d > 64 || tpr < 1 || tpr > 32 || (tpr & (tpr - 1)) != 0) {
@@ -192,11 +216,14 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
   float* sf = static_cast<float*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d <= 16) {
-    launch<16>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, st);
+    launch<16>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
+               inv_keep, st);
   } else if (d <= 32) {
-    launch<32>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, st);
+    launch<32>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
+               inv_keep, st);
   } else {
-    launch<64>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, st);
+    launch<64>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
+               inv_keep, st);
   }
   return (int)cudaGetLastError();
 }

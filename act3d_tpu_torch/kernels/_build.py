@@ -3,8 +3,9 @@ them with ctypes.
 
 Each source is compiled on first use into a shared library with a plain
 C interface, under ``act3d_tpu_torch/_build/`` (listed in .gitignore),
-named by a hash of the source and the flags so an edited source rebuilds.
-Nothing here runs at import time.
+named by a hash of the source, every header of ``csrc/`` and the flags, so
+an edited source or shared header rebuilds.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("fused_mha_fwd.cu",)
+SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu")
+HEADER_SUFFIXES = (".cuh", ".h")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    """Library of one source, named by a hash of the source, of every
+    header in CSRC_DIR (name and bytes) and of the flags."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(p for p in CSRC_DIR.iterdir() if p.suffix in HEADER_SUFFIXES):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:

@@ -1,16 +1,26 @@
-"""Fused multi-head attention forward: CUDA kernel wrapper and plain version.
+"""Fused multi-head attention: CUDA kernel wrappers and plain versions.
 
-Replaces ``act3d_tpu/kernels/attention.py::_mha_fwd_body`` (the plain and
-key-padding-masked variants, without dropout) with the hand-written
-Hopper kernel in ``csrc/fused_mha_fwd.cu``.  The contract is the TPU
-kernel's: q (B, L, E) already scaled and rotated, k/v (B, S, E), heads as
-contiguous E/H lane slices, softmax in float32, masked keys at -1e30 (a
-fully masked row gets uniform weights), and row stats (B, L, 2H) float32
-with m at lane 2h and l at lane 2h+1.
+Replaces ``act3d_tpu/kernels/attention.py::_mha_fwd_body`` (plain, masked
+and dropout variants) with ``csrc/fused_mha_fwd.cu`` and
+``_mha_bwd_body`` with ``csrc/fused_mha_bwd.cu``, both hand-written for
+Hopper.  The contract is the TPU kernels': q (B, L, E) already scaled and
+rotated, k/v (B, S, E), heads as contiguous E/H lane slices, softmax in
+float32, masked keys at -1e30 (a fully masked row gets uniform weights),
+row stats (B, L, 2H) float32 with m at lane 2h and l (summed before
+dropout) at lane 2h+1, and attention-weight dropout applied inside the
+kernels: keep = hash bits >= rate * 2^32, kept weights scaled by
+1/(1-rate).
 
-:func:`fused_mha_forward` sends a CPU tensor to the plain version
-:func:`fused_mha_forward_reference` and a CUDA tensor to the kernel; on a
-CUDA tensor it launches the kernel or raises.
+The keep mask is a pure function of (seed, b, h, row, col) in absolute
+coordinates (``csrc/dropout_hash.cuh``, mirrored by :func:`dropout_keep`),
+so the forward, the backward and the plain versions regenerate the same
+mask whatever their tiling.  The TPU kernel's own bits cannot be
+reproduced; the contract is semantic.
+
+:func:`fused_mha_forward` and :func:`fused_mha_backward` send a CPU tensor
+to their plain versions and a CUDA tensor to the kernels: on a CUDA tensor
+they launch the kernel or raise.  :class:`FusedMHA` puts the two behind
+autograd.
 """
 
 from __future__ import annotations
@@ -20,38 +30,156 @@ from typing import Optional
 
 import torch
 
-__all__ = ["fused_mha_forward", "fused_mha_forward_reference", "MAX_HEAD_DIM"]
+__all__ = [
+    "FusedMHA",
+    "MAX_HEAD_DIM",
+    "dropout_keep",
+    "fused_mha_backward",
+    "fused_mha_backward_reference",
+    "fused_mha_forward",
+    "fused_mha_forward_reference",
+]
 
 MAX_HEAD_DIM = 64
 MASKED_SCORE = -1e30
-_THREADS = 128  # threads of one block (csrc/fused_mha_fwd.cu kThreads)
+_THREADS = 128  # threads of one block (kThreads of both sources)
+_ROW_TILE = 64  # rows staged per step of the backward's dk/dv pass
 # blocks wanted per launch before rows are split across more threads:
 # two per SM of a 132-SM H100
 _TARGET_BLOCKS = 264
-_SOURCE = "fused_mha_fwd.cu"
+_FWD_SOURCE = "fused_mha_fwd.cu"
+_BWD_SOURCE = "fused_mha_bwd.cu"
+
+# ---------------------------------------------------------------- keep mask
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_SEED_SALT = 0x85EBCA6B  # keeps an int31 seed off mix32's fixed point 0
 
 
-def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None):
-    """Plain PyTorch version of the kernel: returns (out, stats)."""
-    b, l, e = q.shape
-    s = k.shape[1]
-    d = e // num_heads
-    qh = q.reshape(b, l, num_heads, d).transpose(1, 2).float()
-    kh = k.reshape(b, s, num_heads, d).transpose(1, 2).float()
-    vh = v.reshape(b, s, num_heads, d).transpose(1, 2).float()
+def _mul32(x, c: int):
+    """x * c mod 2^32 for x in [0, 2^32) (an int64 tensor or an int) and a
+    constant c: the product is taken on 16-bit halves of x so that nothing
+    overflows int64."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _mix32(x):
+    """lowbias32, as act3d_mix32 in csrc/dropout_hash.cuh."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_threshold(rate: float) -> int:
+    """Drop with probability ``rate``: bits < rate * 2^32."""
+    return min(int(rate * 2.0**32), _M32)
+
+
+def dropout_bits(seed: int, b: int, h: int, l: int, s: int, device="cpu"):
+    """(B, H, L, S) int64 hash bits in [0, 2^32), as the kernels draw them."""
+    def idx(n, shape):
+        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+
+    key = _mix32((seed & _M32) ^ _SEED_SALT)  # a Python int: no host-device copy
+    key = _mix32(key ^ idx(b, (b, 1, 1)))
+    key = _mix32(key ^ idx(h, (1, h, 1)))
+    key = _mix32(key ^ idx(l, (1, 1, l)))  # row keys (B, H, L)
+    return _mix32(key[..., None] ^ _mul32(idx(s, (s,)), _GOLDEN))
+
+
+def dropout_keep(seed: int, b: int, h: int, l: int, s: int, rate: float,
+                 device="cpu") -> torch.Tensor:
+    """(B, H, L, S) bool keep mask of the kernels' attention dropout."""
+    return dropout_bits(seed, b, h, l, s, device) >= keep_threshold(rate)
+
+
+# ----------------------------------------------------------- plain versions
+def _split(x, num_heads):
+    b, n, e = x.shape
+    return x.reshape(b, n, num_heads, e // num_heads).transpose(1, 2).float()
+
+
+def _merge(x, dtype):
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d).to(dtype)
+
+
+def _keep_or_none(keep, seed, rate, b, h, l, s, device):
+    if rate <= 0.0:
+        return None
+    if keep is None:
+        keep = dropout_keep(seed, b, h, l, s, rate, device)
+    return keep
+
+
+def _scores(qh, kh, key_padding_mask):
     scores = qh @ kh.transpose(-1, -2)  # (B, H, L, S)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], MASKED_SCORE)
+    return scores
+
+
+def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None,
+                                dropout_rate: float = 0.0, dropout_seed=None,
+                                keep=None):
+    """Plain PyTorch version of the forward kernel: returns (out, stats).
+
+    ``keep`` (B, H, L, S) bool replaces the hash mask (tests feed another
+    implementation's mask through it)."""
+    b, l, _ = q.shape
+    s = k.shape[1]
+    qh, kh, vh = (_split(x, num_heads) for x in (q, k, v))
+    scores = _scores(qh, kh, key_padding_mask)
     m = scores.amax(dim=-1, keepdim=True)
     ex = torch.exp(scores - m)
-    lsum = ex.sum(dim=-1, keepdim=True)
-    o = (ex @ vh) * (1.0 / lsum)
-    out = o.transpose(1, 2).reshape(b, l, e).to(q.dtype)
+    lsum = ex.sum(dim=-1, keepdim=True)  # before dropout
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    scale = 1.0 / lsum
+    if keep is not None:
+        ex = ex * keep
+        scale = scale * (1.0 / (1.0 - dropout_rate))
+    out = _merge((ex @ vh) * scale, q.dtype)
     stats = torch.stack([m[..., 0], lsum[..., 0]], dim=-1)  # (B, H, L, 2)
     stats = stats.permute(0, 2, 1, 3).reshape(b, l, 2 * num_heads)
     return out, stats
 
 
+def _delta(out, grad_out, num_heads):
+    """rowsum(dO * O) per head, (B, L, H) float32."""
+    b, l, e = out.shape
+    prod = grad_out.float() * out.float()
+    return prod.reshape(b, l, num_heads, e // num_heads).sum(dim=-1)
+
+
+def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
+                                 key_padding_mask=None, dropout_rate: float = 0.0,
+                                 dropout_seed=None, keep=None):
+    """Plain PyTorch version of the backward kernel (the formula of the TPU
+    kernel's ``_mha_bwd_body``): returns (dq, dk, dv)."""
+    b, l, _ = q.shape
+    s = k.shape[1]
+    qh, kh, vh, gh = (_split(x, num_heads) for x in (q, k, v, grad_out))
+    st = stats.reshape(b, l, num_heads, 2).permute(0, 2, 1, 3)  # (B, H, L, 2)
+    m, lsum = st[..., :1], st[..., 1:]
+    delta = _delta(out, grad_out, num_heads).transpose(1, 2)[..., None]  # (B, H, L, 1)
+    p = torch.exp(_scores(qh, kh, key_padding_mask) - m) / lsum
+    dp = gh @ vh.transpose(-1, -2)
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    pk = p
+    if keep is not None:
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        pk = p * keep * inv_keep
+        dp = dp * keep * inv_keep
+    ds = p * (dp - delta)
+    dv = pk.transpose(-1, -2) @ gh
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
+
+
+# ------------------------------------------------------------------ wrappers
 def _threads_per_row(b: int, l: int, h: int) -> int:
     """Threads sharing one query row: split rows until the launch has
     enough blocks to fill the card (small L, e.g. the 50-row sampler
@@ -62,18 +190,44 @@ def _threads_per_row(b: int, l: int, h: int) -> int:
     return tpr
 
 
-def _kernel_fn():
+def _dkdv_layout(b: int, l: int, s: int, h: int):
+    """(tpk, nsplit) of the backward's dk/dv pass: threads sharing one key
+    (a short context gets fewer keys per block, so fewer idle threads), and
+    the number of blocks over which L is split when B * H * key tiles
+    alone would leave the card idle (the L=3072, S=53 site)."""
+    tpk = 1
+    while tpk < 32 and _THREADS // tpk >= 2 * s:
+        tpk *= 2
+    blocks = b * h * -(-s // (_THREADS // tpk))
+    nsplit = 1
+    while blocks * nsplit < 2 * _TARGET_BLOCKS and l >= 2 * nsplit * _ROW_TILE:
+        nsplit *= 2
+    return tpk, nsplit
+
+
+def _fwd_fn():
     from . import _build
 
-    lib = _build.load(_SOURCE)
-    fn = lib.act3d_fused_mha_fwd_f32
+    fn = _build.load(_FWD_SOURCE).act3d_fused_mha_fwd_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, num_heads, mask):
+def _bwd_fn():
+    from . import _build
+
+    fn = _build.load(_BWD_SOURCE).act3d_fused_mha_bwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, num_heads, mask, rate, seed):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (B, L, E), (B, S, E), (B, S, E)")
     b, _, e = q.shape
@@ -84,6 +238,10 @@ def _check(q, k, v, num_heads, mask):
         raise ValueError(f"E={e} does not divide into {num_heads} heads")
     if k.shape[1] < 1:
         raise ValueError("attention over an empty context")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    if rate > 0.0 and not isinstance(seed, int):
+        raise ValueError("dropout needs an int dropout_seed")
     devices = {q.device, k.device, v.device}
     if mask is not None:
         if mask.dtype != torch.bool or tuple(mask.shape) != (b, k.shape[1]):
@@ -91,6 +249,26 @@ def _check(q, k, v, num_heads, mask):
         devices.add(mask.device)
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _check_cuda(mask, d, **tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"{name} is {t.dtype}: the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if mask is not None and not mask.is_contiguous():
+        raise ValueError("key_padding_mask must be contiguous")
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(f"head dim {d} > {MAX_HEAD_DIM}")
+
+
+def _dropout_args(rate, seed):
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    return 1, seed & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def fused_mha_forward(
@@ -100,39 +278,35 @@ def fused_mha_forward(
     num_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,
     return_stats: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ):
-    """Multi-head softmax attention core on (B, L, E) tensors.
+    """Multi-head softmax attention core on (B, L, E) tensors, no autograd.
 
     key_padding_mask: optional (B, S) bool, True = masked out.
+    dropout_rate / dropout_seed: attention-weight dropout with the hash
+    keep mask of that int seed.
     Returns out (B, L, E), or (out, stats) with ``return_stats``.
     """
-    _check(q, k, v, num_heads, key_padding_mask)
+    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
-        out, stats = fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask)
-    elif q.device.type == "cuda":
-        out, stats = _launch(q, k, v, num_heads, key_padding_mask)
+        out, stats = fused_mha_forward_reference(
+            q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
     else:
-        raise ValueError(f"unsupported device {q.device}")
+        out, stats = _launch_fwd(q, k, v, num_heads, key_padding_mask, dropout_rate,
+                                 dropout_seed)
     return (out, stats) if return_stats else out
 
 
 fused_mha_forward.launches = 0  # kernel launches since the last reset
 
 
-def _launch(q, k, v, num_heads, mask):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"{name} is {t.dtype}: the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if mask is not None and not mask.is_contiguous():
-        raise ValueError("key_padding_mask must be contiguous")
+def _launch_fwd(q, k, v, num_heads, mask, rate, seed):
     b, l, e = q.shape
     s = k.shape[1]
     d = e // num_heads
-    if d > MAX_HEAD_DIM:
-        raise NotImplementedError(f"head dim {d} > {MAX_HEAD_DIM}")
-    fn = _kernel_fn()
+    _check_cuda(mask, d, q=q, k=k, v=v)
+    fn = _fwd_fn()
     out = torch.empty_like(q)
     stats = torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -141,9 +315,83 @@ def _launch(q, k, v, num_heads, mask):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             out.data_ptr(), stats.data_ptr(),
-            b, l, s, num_heads, d, _threads_per_row(b, l, num_heads), stream,
+            b, l, s, num_heads, d, _threads_per_row(b, l, num_heads),
+            *_dropout_args(rate, seed), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_fwd launch failed: CUDA error {rc}")
     fused_mha_forward.launches += 1
     return out, stats
+
+
+def fused_mha_backward(q, k, v, out, stats, grad_out, num_heads,
+                       key_padding_mask=None, dropout_rate: float = 0.0,
+                       dropout_seed: Optional[int] = None):
+    """Gradients (dq, dk, dv) of the attention core from the forward's out
+    and stats; the same dropout_rate / dropout_seed as the forward."""
+    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
+    if q.device.type == "cpu":
+        return fused_mha_backward_reference(
+            q, k, v, out, stats, grad_out, num_heads, key_padding_mask, dropout_rate,
+            dropout_seed)
+    return _launch_bwd(q, k, v, out, stats, grad_out, num_heads, key_padding_mask,
+                       dropout_rate, dropout_seed)
+
+
+fused_mha_backward.launches = 0  # kernel launches since the last reset
+
+
+def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed):
+    b, l, e = q.shape
+    s = k.shape[1]
+    d = e // num_heads
+    delta = _delta(out, grad_out, num_heads).contiguous()
+    _check_cuda(mask, d, q=q, k=k, v=v, grad_out=grad_out, stats=stats)
+    fn = _bwd_fn()
+    tpk, nsplit = _dkdv_layout(b, l, s, num_heads)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    work = (torch.empty((2, nsplit, b, s, e), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
+            stats.data_ptr(), delta.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if work is None else work.data_ptr(),
+            b, l, s, num_heads, d, _threads_per_row(b, l, num_heads), tpk, nsplit,
+            *_dropout_args(rate, seed), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_mha_bwd launch failed: CUDA error {rc}")
+    fused_mha_backward.launches += 1
+    return dq, dk, dv
+
+
+class FusedMHA(torch.autograd.Function):
+    """The attention core under autograd: :func:`fused_mha_forward` forward,
+    :func:`fused_mha_backward` backward (kernels on the card, plain versions
+    on the CPU).  apply(q, k, v, num_heads, key_padding_mask, dropout_rate,
+    dropout_seed) -> out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed):
+        out, stats = fused_mha_forward(q, k, v, num_heads, key_padding_mask,
+                                       return_stats=True, dropout_rate=dropout_rate,
+                                       dropout_seed=dropout_seed)
+        ctx.save_for_backward(q, k, v, out, stats, key_padding_mask)
+        ctx.num_heads = num_heads
+        ctx.dropout_rate = dropout_rate
+        ctx.dropout_seed = dropout_seed
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, stats, mask = ctx.saved_tensors
+        dq, dk, dv = fused_mha_backward(
+            q, k, v, out, stats, grad_out.contiguous(), ctx.num_heads, mask,
+            ctx.dropout_rate, ctx.dropout_seed)
+        return dq, dk, dv, None, None, None, None

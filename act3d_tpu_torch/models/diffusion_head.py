@@ -1,11 +1,13 @@
-"""ChainedDiffuser denoiser network, inference path (PyTorch).
+"""ChainedDiffuser denoiser network (PyTorch).
 
 Counterpart of ``act3d_tpu/models/diffusion_head.py::DiffusionHead``:
 ``encode_context`` runs once per observation (frozen visual encoding,
 instruction and gripper tokens), ``denoise`` runs every diffusion step.
 As in JAX, ``vl_attention`` (visual tokens attending to the instruction)
 sits inside ``denoise`` and is recomputed every step although its inputs
-do not change.
+do not change.  In training mode ``denoise`` applies JAX's dropout (rate
+0.1 by default) after ``traj_enc_fc1`` and the regressors' ``fc1`` and
+inside every attention stack, drawn from the ``generators`` it is given.
 
 One attention round over one feature scale is ported (the reference
 configuration); the blocks keep their flax names with the ``_0`` suffix.
@@ -20,7 +22,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.encoder import VisualEncoder
-from ..nn.layers import ParallelAttention
+from ..nn.dropout import Generators, dropout
+from ..nn.layers import ParallelAttention, active_generators
 from ..ops.rotary import rotary_pe_3d, sinusoidal_pos_emb
 
 
@@ -42,9 +45,11 @@ class DiffusionHead(nn.Module):
         num_query_cross_attn_layers: int = 6,
         use_instruction: bool = False,
         use_goal: bool = False,
+        dropout: float = 0.1,
     ):
         super().__init__()
         dim = embedding_dim
+        self.dropout = dropout
         if dim % 3 != 0 or dim % num_attn_heads != 0:
             raise ValueError(
                 f"embedding_dim {dim} must divide by 3 (one rotary band per "
@@ -66,10 +71,11 @@ class DiffusionHead(nn.Module):
 
         cross_only = dict(d_model=dim, n_heads=num_attn_heads, self_attention1=False,
                           self_attention2=False, cross_attention1=True,
-                          cross_attention2=False)
+                          cross_attention2=False, dropout=dropout)
         traj = dict(d_model=dim, n_heads=num_attn_heads, self_attention1=True,
                     self_attention2=False, cross_attention1=True,
-                    cross_attention2=False, rotary_pe=True, use_adaln=True)
+                    cross_attention2=False, rotary_pe=True, use_adaln=True,
+                    dropout=dropout)
         if use_instruction:
             self.vl_attention_0 = ParallelAttention(num_vis_ins_attn_layers, **cross_only)
             self.traj_lang_attention_0 = ParallelAttention(1, apply_ffn=False, **cross_only)
@@ -121,11 +127,18 @@ class DiffusionHead(nn.Module):
         trajectory_mask: torch.Tensor,  # (B, L) bool, True = padding
         timestep: torch.Tensor,  # (B,)
         context: Dict[str, object],
+        generators: Optional[Generators] = None,
     ) -> torch.Tensor:
-        """Clean-trajectory prediction (B, L, output_dim)."""
+        """Clean-trajectory prediction (B, L, output_dim).  ``generators``
+        drive dropout in training mode."""
         dim = self.embedding_dim
         b, length = trajectory.shape[:2]
-        traj_feats = self.traj_enc_fc2(F.relu(self.traj_enc_fc1(trajectory)))
+        gens = active_generators(self, self.dropout, generators)
+
+        def drop(x):
+            return dropout(x, self.dropout, gens)
+
+        traj_feats = self.traj_enc_fc2(drop(F.relu(self.traj_enc_fc1(trajectory))))
         traj_pos = rotary_pe_3d(trajectory[..., :3], dim)
         time_feats = sinusoidal_pos_emb(timestep, dim)
         traj_time_pos = sinusoidal_pos_emb(
@@ -135,7 +148,8 @@ class DiffusionHead(nn.Module):
         context_feats = context["rgb_feats_pyramid"][0]
         context_pos = rotary_pe_3d(context["pcd_pyramid"][0], dim)
         if self.use_instruction:
-            context_feats, _ = self.vl_attention_0(context_feats, context["instr_feats"])
+            context_feats, _ = self.vl_attention_0(context_feats, context["instr_feats"],
+                                                   generators=generators)
         context_feats = torch.cat([context_feats, context["curr_gripper_feats"]], dim=1)
         context_pos = torch.cat([context_pos, context["curr_gripper_pos"]], dim=1)
         if self.use_goal:
@@ -146,13 +160,14 @@ class DiffusionHead(nn.Module):
             traj_feats, _ = self.traj_lang_attention_0(
                 traj_feats, context["instr_feats"],
                 seq1_key_padding_mask=trajectory_mask, seq1_sem_pos=traj_time_pos,
+                generators=generators,
             )
         kwargs = dict(seq1_key_padding_mask=trajectory_mask, seq1_pos=traj_pos,
                       seq2_pos=context_pos, seq1_sem_pos=traj_time_pos,
-                      ada_sgnl=time_feats)
+                      ada_sgnl=time_feats, generators=generators)
         traj_feats, _ = self.traj_attention_0(traj_feats, context_feats, **kwargs)
         pos_feats, _ = self.pos_attention_0(traj_feats, context_feats, **kwargs)
         rot_feats, _ = self.rot_attention_0(traj_feats, context_feats, **kwargs)
-        pos = self.pos_regressor_0_fc2(F.relu(self.pos_regressor_0_fc1(pos_feats)))
-        rot = self.rot_regressor_0_fc2(F.relu(self.rot_regressor_0_fc1(rot_feats)))
+        pos = self.pos_regressor_0_fc2(drop(F.relu(self.pos_regressor_0_fc1(pos_feats))))
+        rot = self.rot_regressor_0_fc2(drop(F.relu(self.rot_regressor_0_fc1(rot_feats))))
         return torch.cat([trajectory[..., :3] + pos, rot], dim=-1)

@@ -1,4 +1,4 @@
-"""ChainedDiffuser trajectory DDPM, sampling path (PyTorch).
+"""ChainedDiffuser trajectory DDPM (PyTorch).
 
 Counterpart of ``act3d_tpu/models/diffusion_planner.py``: two DDPM
 schedules (positions: scaled_linear; rotations: squaredcos_cap_v2), both
@@ -8,9 +8,11 @@ dataset-layout quaternion (xyzw) is fed to the wxyz-convention maths
 unchanged; the 6D parametrization is self-consistent under this
 relabelling, so outputs land back in dataset layout.
 
-:func:`compute_trajectory` encodes the observation once and runs the
-reverse process as a Python loop over the steps.  The training forward
-(noise at a random timestep, L1 loss) is not ported yet.
+``forward`` is the training loss of JAX ``DiffusionPlanner.__call__``:
+noise at a uniform random timestep, the validity-masked
+100 * L1(pos) + 10 * L1(rot6d).  :func:`compute_trajectory` encodes the
+observation once and runs the reverse process as a Python loop over the
+steps.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..nn.dropout import Generators
 from ..ops import rotations as R
 from ..ops.schedulers import make_ddpm_schedule
 from .diffusion_head import DiffusionHead
@@ -110,6 +113,65 @@ class DiffusionPlanner(nn.Module):
             instruction if self.use_instruction else None,
         )
         return context, curr, goal
+
+    def forward(
+        self,
+        gt_trajectory: torch.Tensor,  # (B, L, 7) quaternion layout
+        trajectory_mask: torch.Tensor,  # (B, L) bool, True = padding
+        rgb_obs: torch.Tensor,  # (B, ncam, 3, H, W)
+        pcd_obs: torch.Tensor,  # (B, ncam, 3, H, W)
+        instruction: Optional[torch.Tensor],
+        curr_gripper: torch.Tensor,  # (B, 7)
+        goal_gripper: torch.Tensor,  # (B, 7)
+        *,
+        generator: Optional[Generators] = None,
+        noise: Optional[torch.Tensor] = None,
+        timesteps: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Training loss (scalar), as JAX ``DiffusionPlanner.__call__``.
+
+        Padded rows get the identity quaternion (a zero quaternion is
+        singular under the 6D conversion) and are left out of the L1 means.
+        ``noise`` (B, L, 9) and ``timesteps`` (B,) are drawn from
+        ``generator.device`` unless given (tests inject JAX's draws);
+        ``generator`` also drives dropout in training mode.
+        """
+        ident = torch.zeros_like(gt_trajectory[..., 3:7])
+        ident[..., 3] = 1.0
+        quat = torch.where(trajectory_mask[..., None], ident, gt_trajectory[..., 3:7])
+        gt = torch.cat([self.normalize_pos(gt_trajectory[..., :3]), quat,
+                        gt_trajectory[..., 7:]], dim=-1)
+        pcd = self._normalize_pcd(pcd_obs)
+        curr = self._prep_gripper(curr_gripper)
+        goal = self._prep_gripper(goal_gripper)
+        gt = self.convert_rot(gt)
+
+        b = gt.shape[0]
+        if generator is None and (noise is None or timesteps is None):
+            raise ValueError("the training loss needs generator=Generators(...) or both "
+                             "noise and timesteps")
+        if noise is None:
+            noise = torch.randn(gt.shape, generator=generator.device, device=gt.device)
+        if timesteps is None:
+            timesteps = torch.randint(0, self.diffusion_timesteps, (b,),
+                                      generator=generator.device, device=gt.device)
+        pos = self.pos_schedule.add_noise(gt[..., :3], noise[..., :3], timesteps)
+        rot = self.rot_schedule.add_noise(gt[..., 3:9], noise[..., 3:9], timesteps)
+        noisy = torch.cat([pos, rot], dim=-1)
+
+        context = self.prediction_head.encode_context(
+            rgb_obs, pcd, curr,
+            goal if self.use_goal else None,
+            instruction if self.use_instruction else None,
+        )
+        pred = self.prediction_head.denoise(noisy, trajectory_mask, timesteps, context,
+                                            generators=generator)
+
+        valid = (~trajectory_mask)[..., None].to(gt.dtype)
+        n_valid = valid.sum().clamp_min(1.0)
+        pos_l1 = ((pred[..., :3] - gt[..., :3]).abs() * valid).sum() / (n_valid * 3.0)
+        rot_l1 = ((pred[..., 3:9] - gt[..., 3:9]).abs() * valid).sum() / (n_valid * 6.0)
+        return 100.0 * pos_l1 + 10.0 * rot_l1
 
     def denoise_step(self, trajectory, trajectory_mask, timestep, context):
         """One denoiser evaluation: the clean-sample prediction."""

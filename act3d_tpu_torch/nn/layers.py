@@ -1,11 +1,17 @@
-"""Transformer building blocks (PyTorch, eval mode).
+"""Transformer building blocks (PyTorch).
 
 Counterpart of ``act3d_tpu/nn/layers.py``: MultiheadAttention,
 RelativeCrossAttentionLayer/Module, FeedforwardLayer, AdaLN and
 ParallelAttentionLayer/ParallelAttention.  Post-norm, LayerNorm eps 1e-5.
 Submodules carry the flax names so ``convert.py`` maps weights
-mechanically.  These modules run the serving path only: dropout is a
-training feature and is not applied.
+mechanically.
+
+Dropout follows JAX's ``deterministic=False`` path when the module is in
+training mode: attention-weight dropout inside MultiheadAttention (in the
+kernel), ``drop(out)`` before each residual of ParallelAttentionLayer and
+both FFN dropouts, drawn from the :class:`nn.dropout.Generators` passed to
+``forward``.  The Act3D layers (RelativeCrossAttention*, FeedforwardLayer)
+run without dropout: their training slice comes later.
 """
 
 from __future__ import annotations
@@ -17,8 +23,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import AttentionParams, multi_head_attention
+from .dropout import Generators, dropout
 
 LN_EPS = 1e-5
+
+
+def active_generators(module: nn.Module, rate: float,
+                      generators: Optional[Generators]) -> Optional[Generators]:
+    """The generators when ``module`` drops out (training mode, rate > 0),
+    else None.  Training with dropout and no generators raises."""
+    if not module.training or rate <= 0.0:
+        return None
+    if generators is None:
+        raise ValueError(f"{type(module).__name__} is in training mode with dropout "
+                         f"{rate}: pass generators=Generators(...)")
+    return generators
 
 
 def _xavier_linear(d_in: int, d_out: int) -> nn.Linear:
@@ -29,17 +48,20 @@ def _xavier_linear(d_in: int, d_out: int) -> nn.Linear:
 
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, slot_competition: bool = False):
+    def __init__(self, embed_dim: int, num_heads: int, slot_competition: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.slot_competition = slot_competition
+        self.dropout = dropout
         self.q_proj = _xavier_linear(embed_dim, embed_dim)
         self.k_proj = _xavier_linear(embed_dim, embed_dim)
         self.v_proj = _xavier_linear(embed_dim, embed_dim)
         self.out_proj = _xavier_linear(embed_dim, embed_dim)
 
     def forward(self, query, key, value, *, q_pe=None, k_pe=None,
-                key_padding_mask=None):
+                key_padding_mask=None, generators: Optional[Generators] = None):
+        gens = active_generators(self, self.dropout, generators)
         params = AttentionParams(
             self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
             self.out_proj.weight, self.q_proj.bias, self.k_proj.bias,
@@ -49,6 +71,8 @@ class MultiheadAttention(nn.Module):
             params, query, key, value, self.num_heads, q_pe=q_pe, k_pe=k_pe,
             key_padding_mask=key_padding_mask,
             slot_competition=self.slot_competition,
+            dropout_rate=self.dropout if gens is not None else 0.0,
+            generator=None if gens is None else gens.host,
         )
 
 
@@ -140,8 +164,10 @@ class ParallelAttentionLayer(nn.Module):
         apply_ffn: bool = True,
         rotary_pe: bool = False,
         use_adaln: bool = False,
+        dropout: float = 0.1,
     ):
         super().__init__()
+        self.dropout = dropout
         self.rotary_pe = rotary_pe
         self.self_attention1 = self_attention1
         self.self_attention2 = self_attention2
@@ -155,7 +181,7 @@ class ParallelAttentionLayer(nn.Module):
                 return
             if use_adaln:
                 setattr(self, adaln, AdaLN(d_model))
-            setattr(self, attn, MultiheadAttention(d_model, n_heads))
+            setattr(self, attn, MultiheadAttention(d_model, n_heads, dropout=dropout))
             setattr(self, norm, nn.LayerNorm(d_model, eps=LN_EPS))
 
         block(cross_attention1, "adaln_12", "cross_12", "norm_12")
@@ -184,10 +210,10 @@ class ParallelAttentionLayer(nn.Module):
             q = k = _maybe_add(seq, pos)
         return _maybe_add(q, sem_pos), _maybe_add(k, sem_pos)
 
-    def _ffn(self, tag, other, norm, seq, ada_sgnl):
+    def _ffn(self, tag, other, norm, seq, ada_sgnl, gens):
         seq = self._adaln(f"adaln_ff{tag}", seq, ada_sgnl)
-        h = F.relu(getattr(self, f"ffn_{tag}{other}_fc1")(seq))
-        h = getattr(self, f"ffn_{tag}{other}_fc2")(h)
+        h = dropout(F.relu(getattr(self, f"ffn_{tag}{other}_fc1")(seq)), self.dropout, gens)
+        h = dropout(getattr(self, f"ffn_{tag}{other}_fc2")(h), self.dropout, gens)
         return getattr(self, norm)(seq + h)
 
     def forward(
@@ -202,8 +228,14 @@ class ParallelAttentionLayer(nn.Module):
         seq1_sem_pos=None,
         seq2_sem_pos=None,
         ada_sgnl=None,
+        generators: Optional[Generators] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         rot = self.rotary_pe
+        gens = active_generators(self, self.dropout, generators)
+
+        def drop(x):
+            return dropout(x, self.dropout, gens)
+
         q1, k1 = self._qk(seq1, seq1_pos, seq1_sem_pos)
         q2, k2 = self._qk(seq2, seq2_pos, seq2_sem_pos)
         v1, v2 = seq1, seq2
@@ -212,16 +244,16 @@ class ParallelAttentionLayer(nn.Module):
             out = self.cross_12(
                 self._adaln("adaln_12", q1, ada_sgnl), k2, v2,
                 q_pe=seq1_pos if rot else None, k_pe=seq2_pos if rot else None,
-                key_padding_mask=seq2_key_padding_mask,
+                key_padding_mask=seq2_key_padding_mask, generators=generators,
             )
-            seq1 = self.norm_12(seq1 + out)
+            seq1 = self.norm_12(seq1 + drop(out))
         if self.cross_attention2:
             out = self.cross_21(
                 self._adaln("adaln_21", q2, ada_sgnl), k1, v1,
                 q_pe=seq2_pos if rot else None, k_pe=seq1_pos if rot else None,
-                key_padding_mask=seq1_key_padding_mask,
+                key_padding_mask=seq1_key_padding_mask, generators=generators,
             )
-            seq2 = self.norm_21(seq2 + out)
+            seq2 = self.norm_21(seq2 + drop(out))
         if self.self_attention1:
             q1, k1 = self._qk(seq1, seq1_pos, seq1_sem_pos)
             out = self.sa1(
@@ -229,9 +261,9 @@ class ParallelAttentionLayer(nn.Module):
                 self._adaln("adaln_1", k1, ada_sgnl),
                 self._adaln("adaln_1", seq1, ada_sgnl),
                 q_pe=seq1_pos if rot else None, k_pe=seq1_pos if rot else None,
-                key_padding_mask=seq1_key_padding_mask,
+                key_padding_mask=seq1_key_padding_mask, generators=generators,
             )
-            seq1 = self.norm_1(seq1 + out)
+            seq1 = self.norm_1(seq1 + drop(out))
         if self.self_attention2:
             q2, k2 = self._qk(seq2, seq2_pos, seq2_sem_pos)
             out = self.sa2(
@@ -239,13 +271,13 @@ class ParallelAttentionLayer(nn.Module):
                 self._adaln("adaln_2", k2, ada_sgnl),
                 self._adaln("adaln_2", seq2, ada_sgnl),
                 q_pe=seq2_pos if rot else None, k_pe=seq2_pos if rot else None,
-                key_padding_mask=seq2_key_padding_mask,
+                key_padding_mask=seq2_key_padding_mask, generators=generators,
             )
-            seq2 = self.norm_2(seq2 + out)
+            seq2 = self.norm_2(seq2 + drop(out))
         if self.ffn1:
-            seq1 = self._ffn("1", "2", "norm_122", seq1, ada_sgnl)
+            seq1 = self._ffn("1", "2", "norm_122", seq1, ada_sgnl, gens)
         if self.ffn2:
-            seq2 = self._ffn("2", "1", "norm_212", seq2, ada_sgnl)
+            seq2 = self._ffn("2", "1", "norm_212", seq2, ada_sgnl, gens)
         return seq1, seq2
 
 

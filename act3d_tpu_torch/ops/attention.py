@@ -6,12 +6,17 @@ the rotary code applied to the full embedding before the head split, the
 softmax core and the output projection.
 
 Every core without slot competition goes to
-:func:`kernels.attention.fused_mha_forward` (the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor).  The TPU routing floors of the
-JAX package (minimum rows, minimum and maximum context) and its head-dim
-pad fold are not carried over.  Slot competition stays plain PyTorch with
--inf masking, as in JAX.  Attention-weight dropout belongs to training and
-is not implemented.
+:class:`kernels.attention.FusedMHA` (the CUDA kernels on a CUDA tensor,
+their plain versions on a CPU tensor, forward and backward).  The TPU
+routing floors of the JAX package (minimum rows, minimum and maximum
+context) and its head-dim pad fold are not carried over.  Slot competition
+stays plain PyTorch with -inf masking, as in JAX.
+
+Attention-weight dropout: with ``dropout_rate > 0`` each call draws one
+int31 seed from a host ``torch.Generator`` (as JAX draws one from its
+dropout key, ops/attention.py:247-249) and hands it to the kernel as a
+launch argument, so no host-device sync happens per call; the keep mask
+is the kernels' hash of (seed, b, h, row, col).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import fused_mha_forward
+from ..kernels.attention import FusedMHA, dropout_keep
 from .rotary import embed_rotary
 
 __all__ = ["AttentionParams", "multi_head_attention"]
@@ -40,8 +45,9 @@ class AttentionParams(NamedTuple):
     bo: Optional[torch.Tensor] = None
 
 
-def _slot_competition_core(q, k, v, num_heads, key_padding_mask):
-    """softmax over queries, then renormalised over keys."""
+def _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate, seed):
+    """softmax over queries, then renormalised over keys; plain dropout
+    of the weights with the kernels' hash mask."""
     b, l, e = q.shape
     d = e // num_heads
     qh = q.reshape(b, l, num_heads, d).transpose(1, 2)
@@ -52,6 +58,9 @@ def _slot_competition_core(q, k, v, num_heads, key_padding_mask):
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
     weights = torch.softmax(scores, dim=-2) + 1e-8
     weights = weights / weights.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        keep = dropout_keep(seed, b, num_heads, l, kh.shape[2], dropout_rate, q.device)
+        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     out = weights.to(vh.dtype) @ vh
     return out.transpose(1, 2).reshape(b, l, e)
 
@@ -68,14 +77,15 @@ def multi_head_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     slot_competition: bool = False,
     dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """query (B, L, E), key/value (B, S, E); q_pe/k_pe rotary codes
     (B, L, E, 2)/(B, S, E, 2); key_padding_mask (B, S) bool, True = masked.
-    Returns (B, L, E) after the output projection."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-weight dropout is part of the training path"
-        )
+    dropout_rate > 0 drops attention weights, seeded from the host
+    ``generator``.  Returns (B, L, E) after the output projection."""
+    seed = None
+    if dropout_rate > 0.0:  # one int31 seed per call, drawn on the host
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
     e = query.shape[-1]
     scaling = (e // num_heads) ** -0.5
     q = F.linear(query, params.wq, params.bq) * scaling
@@ -86,10 +96,9 @@ def multi_head_attention(
     if k_pe is not None:
         k = embed_rotary(k, k_pe)
     if slot_competition:
-        out = _slot_competition_core(q, k, v, num_heads, key_padding_mask)
+        out = _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate,
+                                     seed)
     else:
-        out = fused_mha_forward(
-            q.contiguous(), k.contiguous(), v.contiguous(), num_heads,
-            key_padding_mask=key_padding_mask,
-        )
+        out = FusedMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), num_heads,
+                             key_padding_mask, float(dropout_rate), seed)
     return F.linear(out, params.wo, params.bo)

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu")
+SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu", "scatter_rows.cu")
 HEADER_SUFFIXES = (".cuh", ".h")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,20 +1,22 @@
-"""Act3D keypose predictor, eval-mode forward (PyTorch).
+"""Act3D keypose predictor (PyTorch).
 
-Counterpart of ``act3d_tpu/models/act3d.py::Act3D`` with
-``train_mode=False``: frozen CLIP trunk + FPN tokens; coarse-to-fine
-ghost points (level 0 uniform in the workspace cube, level i >= 1 uniform
-in a shrinking ball around the previous estimate); ghost points and one
-learned query cross-attend to [visual + gripper (+ instruction)] context
-with rotary-3D relative positions; the query decodes a dot-product mask
-over the ghost points and the argmax ghost point is the position.
+Counterpart of ``act3d_tpu/models/act3d.py::Act3D``: frozen CLIP trunk +
+FPN tokens; coarse-to-fine ghost points (level 0 uniform in the workspace
+cube, level i >= 1 uniform in a shrinking ball around the previous
+estimate, or around the ground-truth position when ``gt_action`` is
+given); ghost points and one learned query cross-attend to [visual +
+gripper (+ instruction)] context with rotary-3D relative positions; the
+query decodes a dot-product mask over the ghost points and the argmax ghost
+point is the position.
 
 Fine levels attend to the top-k (32*32*ncam) context tokens nearest the
-previous estimate, sorted by index as in JAX.  The reference configuration
-is ported: weights tied across levels (JAX ``weight_tying`` and
-``gp_emb_tying``, one submodule called at every level) and the rotation
-read from the query as a quaternion (``quat_from_query``).  Training
-(gt-biased sampling, the keypose loss) and ``regress_position_offset`` are
-not ported yet.
+previous estimate, sorted by index as in JAX, so the gather's backward is
+the sorted row-scatter kernel.  The reference configuration is ported:
+weights tied across levels (JAX ``weight_tying`` and ``gp_emb_tying``, one
+submodule called at every level), the rotation read from the query as a
+quaternion (``quat_from_query``) and the optional ``regress_position_offset``
+heads.  JAX's ``train_mode`` is the module's training flag: it picks
+``num_ghost_points`` (training) or ``num_ghost_points_val``.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ class Act3D(nn.Module):
         num_query_cross_attn_layers: int = 2,
         num_vis_ins_attn_layers: int = 2,
         gripper_loc_bounds=((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)),
+        num_ghost_points: int = 1000,
         num_ghost_points_val: int = 10000,
         num_sampling_level: int = 3,
         fine_sampling_ball_diameter: float = 0.16,
+        regress_position_offset: bool = False,
         use_instruction: bool = False,
         device="cuda",
     ):
@@ -63,7 +67,9 @@ class Act3D(nn.Module):
         self.image_size = tuple(image_size)
         self.embedding_dim = dim
         self.num_sampling_level = num_sampling_level
+        self.num_ghost_points = num_ghost_points
         self.num_ghost_points_val = num_ghost_points_val
+        self.regress_position_offset = regress_position_offset
         self.fine_sampling_ball_diameter = fine_sampling_ball_diameter
         self.use_instruction = use_instruction
         self.register_buffer(
@@ -86,6 +92,9 @@ class Act3D(nn.Module):
             self.instruction_encoder = nn.Linear(512, dim)
         self.gripper_state_fc1 = nn.Linear(dim, dim)
         self.gripper_state_fc2 = nn.Linear(dim, _QUAT_DIM + 1)
+        if regress_position_offset:
+            self.ghost_point_offset_fc1 = nn.Linear(dim, dim)
+            self.ghost_point_offset_fc2 = nn.Linear(dim, 3)
         self.to(resolve_device(device))
 
     def forward(
@@ -96,16 +105,22 @@ class Act3D(nn.Module):
         curr_gripper: torch.Tensor,  # (B, 8)
         *,
         generator: Optional[torch.Generator] = None,
+        gt_action: Optional[torch.Tensor] = None,  # (B, 8): centres the fine balls
         ghost_points_override: Optional[Sequence[torch.Tensor]] = None,
+        ghost_uniforms: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, object]:
-        """Eval-mode forward.  Ghost points are drawn from ``generator``
-        unless ``ghost_points_override`` gives each level's (B, N, 3)."""
+        """Ghost points are drawn from ``generator``, or from the uniforms
+        the samplers would draw (``ghost_uniforms``: (B, N, 3) at level 0,
+        (B, 4N, 3) above), unless ``ghost_points_override`` gives each
+        level's (B, N, 3) points."""
         dim = self.embedding_dim
         levels = self.num_sampling_level
         b, ncam = visible_rgb.shape[:2]
         bounds = self.gripper_loc_bounds
-        n_ghost = self.num_ghost_points_val // levels
+        n_ghost = (self.num_ghost_points if self.training else self.num_ghost_points_val) // levels
         fine_k = 32 * 32 * ncam
+        gt_position = None if gt_action is None else gt_action[:, :3].detach()
+        batch_rows = torch.arange(b, device=visible_rgb.device)
 
         rgb_feats_pyramid, pcd_pyramid = self.visual(visible_rgb, visible_pcd)
 
@@ -121,19 +136,20 @@ class Act3D(nn.Module):
         ghost_pcd_pyramid, ghost_pcd_masks_pyramid, position_pyramid = [], [], []
         query_features = self.query_embed[None].expand(b, 1, dim)
         for i in range(levels):
+            u = None if ghost_uniforms is None else ghost_uniforms[i]
             if ghost_points_override is not None:
                 ghost_pcd_i = ghost_points_override[i]
                 n_ghost = ghost_pcd_i.shape[1]
             elif i == 0:
                 ghost_pcd_i = sample_uniform_cube(
-                    bounds.expand(b, 2, 3), n_ghost, generator=generator
+                    bounds.expand(b, 2, 3), n_ghost, generator=generator, u=u
                 )
             else:
-                anchor = position_pyramid[-1]
+                anchor = gt_position if gt_position is not None else position_pyramid[-1]
                 diameter = self.fine_sampling_ball_diameter / _BALL_DIAMETER_DIVISORS[i]
                 ghost_pcd_i = sample_uniform_ball(
                     anchor, diameter / 2.0, ghost_point_bounds(anchor, diameter, bounds),
-                    n_ghost, generator=generator,
+                    n_ghost, generator=generator, u=u,
                 )
 
             if i == 0:
@@ -142,8 +158,8 @@ class Act3D(nn.Module):
             else:
                 idx = topk_nearest_context(position_pyramid[-1], pcd_pyramid[i], fine_k)
                 idx = torch.sort(idx, dim=-1).values
-                context_feats_i = gather_tokens(rgb_feats_pyramid[i], idx)
-                context_xyz_i = gather_tokens(pcd_pyramid[i], idx)
+                context_feats_i = gather_tokens(rgb_feats_pyramid[i], idx, sorted_indices=True)
+                context_xyz_i = gather_tokens(pcd_pyramid[i], idx, sorted_indices=True)
             context_pos_i = rotary_pe_3d(context_xyz_i, dim)
             context_feats_i = torch.cat([context_feats_i, curr_gripper_feats], dim=1)
             context_pos_i = torch.cat([context_pos_i, curr_gripper_pos], dim=1)
@@ -173,16 +189,24 @@ class Act3D(nn.Module):
             masks_i = [torch.einsum("bc,bnc->bn", qf[:, 0], ghost_feats_i)
                        for qf in query_outputs]
             top_idx = torch.argmax(masks_i[-1], dim=-1)
-            position_pyramid.append(ghost_pcd_i[torch.arange(b), top_idx])
+            position_pyramid.append(ghost_pcd_i[batch_rows, top_idx])
             ghost_pcd_pyramid.append(ghost_pcd_i)
             ghost_pcd_masks_pyramid.append(masks_i)
 
+        position = position_pyramid[-1]
+        fine_ghost_pcd_offsets = None
+        if self.regress_position_offset:
+            fine_ghost_pcd_offsets = self.ghost_point_offset_fc2(
+                F.relu(self.ghost_point_offset_fc1(ghost_feats_i)))
+            position = position + fine_ghost_pcd_offsets[batch_rows, top_idx]
+
         pred = self.gripper_state_fc2(F.relu(self.gripper_state_fc1(query_features[:, 0])))
         return {
-            "position": position_pyramid[-1],
+            "position": position,
             "rotation": R.normalise_quat(pred[:, :_QUAT_DIM]),
             "gripper": torch.sigmoid(pred[:, _QUAT_DIM:]),
             "position_pyramid": position_pyramid,
             "ghost_pcd_pyramid": ghost_pcd_pyramid,
             "ghost_pcd_masks_pyramid": ghost_pcd_masks_pyramid,
+            "fine_ghost_pcd_offsets": fine_ghost_pcd_offsets,
         }

@@ -11,7 +11,8 @@ training mode: attention-weight dropout inside MultiheadAttention (in the
 kernel), ``drop(out)`` before each residual of ParallelAttentionLayer and
 both FFN dropouts, drawn from the :class:`nn.dropout.Generators` passed to
 ``forward``.  The Act3D layers (RelativeCrossAttention*, FeedforwardLayer)
-run without dropout: their training slice comes later.
+have no dropout: JAX's ``RelativeCrossAttentionModule`` builds them at
+rate 0 (``act3d_tpu/nn/layers.py:91,124,160-165``), so the port has none.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: torch/CUDA versions, the card's name and power limit; TF32
      is switched off for matmuls and convolutions.
-  2. build: nvcc builds every CUDA source of the port for sm_90a.
+  2. build: nvcc builds every CUDA source of the port for sm_90a (one nvcc
+     per source, all started together).
   3. kernel: the fused-MHA forward kernel against its plain PyTorch
      version at every attention shape of the serving keystep (plus a
      padded-key mask and a fully masked row), atol 2e-5 / rtol 1e-4 on
@@ -22,23 +23,43 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      100 steps; 3 cameras at 256^2; trajectory length 50), seeded random
      weights, 3 keysteps; checks shapes, finiteness, unit quaternions and
      that every attention site launched the forward kernel (1918 per
-     keystep) and none the backward.
+     keystep) and none the backward or the gather adjoint.
   6. training kernels: the fused-MHA forward with dropout (rate 0.1) and
      the fused-MHA backward against their plain versions at every
-     attention shape of the ChainedDiffuser training step (B=16), plus a
-     padded-key mask, a fully masked row and rate 0; the keep fraction of
-     the hash mask; device times of both kernels, their plain versions and
-     SDPA (forward, and backward through autograd as forward + backward
-     minus forward, at dropout_p=0: timing yardstick only).
-  7. small training step: loss and every trainable gradient on the card
+     attention shape of the ChainedDiffuser training step (B=16, E=120,
+     H=8), plus a padded-key mask, a fully masked row and rate 0, and at
+     the three attention shapes of the Act3D keypose training step (B=16,
+     E=60, H=4, rate 0); the keep fraction of the hash mask; device times
+     of both kernels, their plain versions and SDPA (forward, and backward
+     through autograd as forward + backward minus forward, at
+     dropout_p=0: timing yardstick only).
+  7. gather kernels: the sorted and unsorted row-scatter kernels (the
+     fine-context gather's adjoint) against their plain version at the
+     Act3D fine-level shape (B=16, K=3072, C=60, P=49152) for three index
+     layouts (sorted top-k nearest of an anchor in a synthetic cloud,
+     uniform, K-edge-hugging) and at C=3; the match must be exact; device
+     times of both kernels, the plain version and a zero-filled
+     ``scatter_`` (timing yardstick only).
+  8. small training step: loss and every trainable gradient on the card
      against the CPU (same weights, injected noise and timesteps, dropout
      off); a dropout-on step run twice gives identical gradients.
-  8. train: the flagship ChainedDiffuser (emb 120, 8 heads, 6 query
+  9. small keypose step: the same for a small Act3D (128^2, 1 camera, emb
+     24, 2 levels, injected ghost points, gt sampling on), then the card
+     step twice with bit-identical gradients.
+ 10. train: the flagship ChainedDiffuser (emb 120, 8 heads, 6 query
      layers, dropout 0.1, 3 cameras at 256^2, trajectory length 50) takes
      5 Trainer steps at batch 16 on a seeded synthetic batch; checks finite
      losses, changed trainable params, a bit-identical backbone and 19
      forward + 19 backward kernel launches per step; prints step times and
      peak memory.
+ 11. train_act3d: the flagship Act3D keypose model (emb 60, 4 heads, 1000
+     training ghost points over 3 levels, weights tied, instructions, 3
+     cameras at 256^2, gt-biased fine sampling, position CE + rotation x10
+     + gripper) takes 5 Trainer steps at batch 16; checks finite losses,
+     changed params, a bit-identical backbone and 18 fused_mha_fwd + 18
+     fused_mha_bwd + 2 scatter_rows_sorted launches per step; prints step
+     times and peak memory; then one Trainer.evaluate on a batch of 4
+     (10000 ghost points).
 The second-to-last line is a JSON object of kernel numbers; the last is
 {"ok": true, "device": {...}}.  Without a card it exits non-zero before
 printing any result.
@@ -65,11 +86,24 @@ from act3d_tpu_torch.kernels.attention import (
     fused_mha_forward,
     fused_mha_forward_reference,
 )
+from act3d_tpu_torch.kernels.gather import (
+    scatter_rows,
+    scatter_rows_reference,
+    scatter_rows_sorted,
+)
 from act3d_tpu_torch.models import Act3D, DiffusionPlanner
 from act3d_tpu_torch.nn.dropout import Generators
+from act3d_tpu_torch.ops.geometry import topk_nearest_context
 from act3d_tpu_torch.train.engine import Trainer
-from act3d_tpu_torch.train.flagship import diffusion_loss_fn, make_diffusion_model
-from act3d_tpu_torch.utils.testing import synthetic_trajectory_batch
+from act3d_tpu_torch.train.flagship import (
+    diffusion_loss_fn,
+    keypose_loss_fn,
+    keypose_metrics_fn,
+    make_diffusion_model,
+    make_keypose_model,
+)
+from act3d_tpu_torch.train.losses import KeyposeLossAndMetrics
+from act3d_tpu_torch.utils.testing import synthetic_keypose_batch, synthetic_trajectory_batch
 
 ATOL, RTOL = 2e-5, 1e-4
 # backward kernel vs its plain version: float32 sums over up to 3072 rows
@@ -98,6 +132,15 @@ N_KEYSTEPS = 3
 TRAIN_B, TRAIN_STEPS, DROPOUT = 16, 5, 0.1
 SMALL_KEYS = ("trajectory", "trajectory_mask", "rgbs", "pcds", "instr", "curr_gripper",
               "action")
+# Act3D keypose training (act3d_tpu/train/flagship.py make_keypose_model with
+# the trainer defaults of scripts/train_act3d.sh / core/config.py
+# KeyposeConfig: batch 16, lr 1e-4, weight decay 5e-4, 1000 training and
+# 10000 eval ghost points over 3 levels, gt-biased fine sampling)
+KEYPOSE_LEVELS, KEYPOSE_EVAL_B = 3, 4
+KEYPOSE_KEYS = ("rgbs", "pcds", "instr", "curr_gripper")
+# Act3D fine-level gather adjoint: B = 16, K = 32*32*3 context tokens out of
+# P = 128*128*3 points (levels 1 and 2 read the 128^2 res1 map), C = 60
+GATHER_B, GATHER_K, GATHER_P, GATHER_C = TRAIN_B, 32 * 32 * NCAM, 128 * 128 * NCAM, 60
 
 
 def planner_sites_per_denoise() -> int:
@@ -144,6 +187,15 @@ TRAIN_SHAPES = [
     ("check.train_self_padded", 50, 50, "padded", DROPOUT, 0),
     ("check.train_fully_masked_row", 50, 50, "full", DROPOUT, 0),
     ("check.train_cross_rate0", 50, 3074, None, 0.0, 0),
+]
+# The Act3D keypose training step's attention cores, B = 16, E = 60, H = 4,
+# no dropout (JAX builds the Act3D layers at rate 0): per level and layer,
+# vis_ins (3072 visual + 1 gripper rows over 53 instruction tokens), ghost
+# (1000 // 3 ghost points over 3073 + 53 context tokens) and query (1 row).
+KEYPOSE_SHAPES = [
+    ("keypose.vis_ins", 3073, 53, None, 0.0, 6),
+    ("keypose.ghost_point", 333, 3126, None, 0.0, 6),
+    ("keypose.query", 1, 3126, None, 0.0, 6),
 ]
 
 
@@ -345,17 +397,18 @@ def train_mask(kind, b, s, dev):
     return mask
 
 
-def phase_train_kernels(dev, card):
-    """Both kernels at the training shapes, with dropout, against their
-    plain versions; device times beside the bound, plain and SDPA."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+def phase_train_kernels(dev, card, shapes, e, h, seed_base):
+    """Both kernels at one training step's shapes (B = 16, width e, h
+    heads), with the step's dropout, against their plain versions; device
+    times beside the bound, plain and SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(seed_base)
     side = torch.cuda.Stream()
-    b, e, h = TRAIN_B, PLANNER_CFG["embedding_dim"], 8
+    b = TRAIN_B
     d = e // h
     fwd_rows, bwd_rows = [], []
-    for i, (site, l, s, kind, rate, per_step) in enumerate(TRAIN_SHAPES):
+    for i, (site, l, s, kind, rate, per_step) in enumerate(shapes):
         mask = train_mask(kind, b, s, dev)
-        seed = 1000 + i if rate else None
+        seed = seed_base * 1000 + i if rate else None
         q = torch.randn(b, l, e, generator=gen, device=dev) * d ** -0.5
         k, v, g = (torch.randn(b, n, e, generator=gen, device=dev) for n in (s, s, l))
         out, stats = fused_mha_forward(q, k, v, h, mask, True, rate, seed)
@@ -421,6 +474,75 @@ def phase_train_kernels(dev, card):
     return fwd_rows, bwd_rows
 
 
+def gather_indices(layout, gen, dev, b, k, p):
+    """(B, K) int64 unique ascending indices into P rows."""
+    if layout == "topk_nearest":  # what Act3D's fine levels sort and gather
+        lo, hi = torch.tensor(BOUNDS, device=dev)
+        cloud = lo + torch.rand(b, p, 3, generator=gen, device=dev) * (hi - lo)
+        anchor = lo + torch.rand(b, 3, generator=gen, device=dev) * (hi - lo)
+        idx = topk_nearest_context(anchor, cloud, k)
+    elif layout == "uniform":
+        idx = torch.stack([torch.randperm(p, generator=gen, device=dev)[:k] for _ in range(b)])
+    elif layout == "edges":  # the first and last possible positions
+        idx = torch.cat([torch.arange(k // 2, device=dev),
+                         p - k + k // 2 + torch.arange(k - k // 2, device=dev)]).expand(b, k)
+    else:
+        raise ValueError(layout)
+    return torch.sort(idx, dim=-1).values.contiguous()
+
+
+def bound_gather(b, k, p, c):
+    """Bytes the adjoint must move: the (B, P, C) output written once, g and
+    the int64 indices read once; no arithmetic."""
+    nbytes = 4.0 * b * p * c + 4.0 * b * k * c + 8.0 * b * k
+    return 0.0, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_gather_kernels(dev, card):
+    """Both row-scatter kernels against their plain version (exact match)
+    at the Act3D fine-level shape for three index layouts and at C = 3;
+    device times of the kernels, the plain version and a zero-filled
+    scatter_ at the real layout."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    side = torch.cuda.Stream()
+    b, k, p = GATHER_B, GATHER_K, GATHER_P
+    rows = {"scatter_rows_sorted": [], "scatter_rows": []}
+    for layout, c in (("topk_nearest", GATHER_C), ("uniform", GATHER_C), ("edges", GATHER_C),
+                      ("topk_nearest", 3)):
+        idx = gather_indices(layout, gen, dev, b, k, p)
+        g = torch.randn(b, k, c, generator=gen, device=dev)
+        perm = torch.randperm(k, generator=gen, device=dev)
+        g_any, idx_any = g[:, perm].contiguous(), idx[:, perm].contiguous()
+        want = scatter_rows_reference(g, idx, p)
+        got_sorted = scatter_rows_sorted(g, idx, p)
+        got_any = scatter_rows(g_any, idx_any, p)
+        torch.cuda.synchronize()
+        for name, got in (("scatter_rows_sorted", got_sorted), ("scatter_rows", got_any)):
+            err = (got - want).abs().max().item()
+            print(f"gather kernel {name:20s} {layout:12s} B={b} K={k} P={p} C={c}: "
+                  f"exact {torch.equal(got, want)} (max_abs {err:.1e})", flush=True)
+            assert torch.equal(got, want), (name, layout, c)
+        if layout != "topk_nearest" or c != GATHER_C:
+            continue
+        # the Act3D layout: time both kernels beside the plain version and
+        # the library scatter (timing yardstick only, never called by the port)
+        plain_ms = device_ms(lambda: scatter_rows_reference(g, idx, p), 20, side)
+        library_ms = device_ms(lambda: g.new_zeros(b, p, c).scatter_(
+            1, idx[..., None].expand(-1, -1, c), g), 20, side)
+        bounds = _bound_row(*bound_gather(b, k, p, c))
+        for name, fn in (("scatter_rows_sorted", lambda: scatter_rows_sorted(g, idx, p)),
+                         ("scatter_rows", lambda: scatter_rows(g_any, idx_any, p))):
+            ms = device_ms(fn, 20, side)
+            rows[name].append(dict(site=f"act3d.fine_gather.{layout}", B=b, K=k, P=p, C=c,
+                                   per_step=2 if name == "scatter_rows_sorted" else 0,
+                                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, **bounds))
+            print(f"gather kernel {name:20s} {layout:12s} {ms:.4f} ms per call (plain "
+                  f"{plain_ms:.4f}, scatter_ {library_ms:.4f}, bound {bounds['bound_ms']:.5f} "
+                  f"bytes) | {card}", flush=True)
+    return rows
+
+
 def phase_small_train(dev):
     """Loss and gradients of a small model on the card against the CPU
     (same weights, injected noise and timesteps, dropout off), then a
@@ -468,6 +590,62 @@ def phase_small_train(dev):
           f"{len(runs[0][1])} gradients bit-identical", flush=True)
 
 
+def phase_small_keypose(dev):
+    """Loss and gradients of a small Act3D on the card against the CPU:
+    same weights, injected ghost points spread over the workspace (so every
+    level's argmax has a wide margin), gt sampling on; then the card step
+    twice, with bit-identical gradients."""
+    cfg = dict(image_size=(128, 128), embedding_dim=24, num_ghost_points=40,
+               num_sampling_level=2)
+    batch = synthetic_keypose_batch(2, 1, (128, 128), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    lo, hi = np.asarray(BOUNDS, np.float32)
+    ghosts = [torch.from_numpy(rng.uniform(lo, hi, (2, 20, 3)).astype(np.float32))
+              for _ in range(2)]
+    criterion = KeyposeLossAndMetrics()
+    torch.manual_seed(SEED)
+    cpu_model = make_keypose_model(**cfg, device="cpu")
+    card_model = make_keypose_model(**cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+
+    def run(model, device):
+        model.zero_grad(set_to_none=True)
+        pred = model(*(batch[k].to(device) for k in KEYPOSE_KEYS),
+                     gt_action=batch["action"].to(device),
+                     ghost_points_override=[g.to(device) for g in ghosts])
+        loss = sum(criterion.compute_loss(pred, batch["action"].to(device)).values())
+        loss.backward()
+        return pred, loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                   if p.grad is not None and "backbone" not in n}
+
+    cpu_pred, cpu_loss, cpu_grads = run(cpu_model.train(), "cpu")
+    for masks in cpu_pred["ghost_pcd_masks_pyramid"]:
+        top2 = torch.topk(masks[-1].detach(), 2, dim=-1).values
+        assert (top2[:, 0] - top2[:, 1]).min() > 1e-3, top2
+    before = scatter_rows_sorted.launches
+    card_pred, card_loss, card_grads = run(card_model.train(), dev)
+    assert scatter_rows_sorted.launches == before + 1, scatter_rows_sorted.launches
+    for got, want in zip(card_pred["position_pyramid"], cpu_pred["position_pyramid"]):
+        assert torch.equal(got.cpu(), want), (got, want)  # no argmax flip
+    assert cpu_grads.keys() == card_grads.keys() and len(cpu_grads) > 50
+    err = _max_errs((card_grads[n], cpu_grads[n]) for n in cpu_grads)
+    print(f"small keypose step: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; "
+          f"{len(cpu_grads)} gradients, card vs CPU max_abs {err[0]:.3e} max_rel "
+          f"{err[1]:.3e}", flush=True)
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss), (card_loss, cpu_loss)
+    for n in cpu_grads:
+        torch.testing.assert_close(card_grads[n], cpu_grads[n], atol=1e-4, rtol=1e-3, msg=n)
+
+    torch.backends.cudnn.deterministic = True  # conv weight gradients
+    runs = [run(card_model, dev)[1:] for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    assert runs[0][0] == runs[1][0], (runs[0][0], runs[1][0])
+    for n, grad in runs[0][1].items():
+        assert torch.equal(grad, runs[1][1][n]), n
+    print(f"small keypose step on the card, twice: loss {runs[0][0]:.6f}, "
+          f"{len(runs[0][1])} gradients bit-identical", flush=True)
+
+
 def phase_train(dev, card):
     """Trainer steps of the flagship ChainedDiffuser at batch 16."""
     torch.manual_seed(SEED)
@@ -484,6 +662,8 @@ def phase_train(dev, card):
     resident = torch.cuda.memory_allocated()
     fused_mha_forward.launches = 0
     fused_mha_backward.launches = 0
+    scatter_rows_sorted.launches = 0
+    scatter_rows.launches = 0
     steps = []
     for i in range(TRAIN_STEPS):
         fwd0, bwd0 = fused_mha_forward.launches, fused_mha_backward.launches
@@ -499,6 +679,7 @@ def phase_train(dev, card):
         print(f"train step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f}, {launched[0]} "
               f"fused_mha_fwd + {launched[1]} fused_mha_bwd launches | {card}", flush=True)
     launches = (fused_mha_forward.launches, fused_mha_backward.launches)
+    assert scatter_rows_sorted.launches == scatter_rows.launches == 0
     peak = torch.cuda.max_memory_allocated()
     changed, unchanged = 0, []
     for n, p in model.named_parameters():
@@ -520,6 +701,82 @@ def phase_train(dev, card):
     return launches, steps, dict(peak_memory_bytes=peak, resident_memory_bytes=resident)
 
 
+def phase_train_act3d(dev, card):
+    """Trainer steps of the flagship Act3D keypose model at batch 16, then
+    one evaluation at 10000 ghost points."""
+    torch.manual_seed(SEED)
+    model = make_keypose_model(device=dev)
+    batch = synthetic_keypose_batch(TRAIN_B, NCAM, (256, 256), seed=SEED, device=dev)
+    criterion = KeyposeLossAndMetrics()
+    trainer = Trainer(keypose_loss_fn(model, criterion), model,
+                      metrics_fn=keypose_metrics_fn(model, criterion), lr=1e-4,
+                      weight_decay=5e-4, seed=SEED)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    per_step = KEYPOSE_LEVELS * (ACT3D_CFG["num_vis_ins_attn_layers"]
+                                 + ACT3D_CFG["num_ghost_point_cross_attn_layers"]
+                                 + ACT3D_CFG["num_query_cross_attn_layers"])
+    assert per_step == sum(r[-1] for r in KEYPOSE_SHAPES) == 18, per_step
+    gathers = KEYPOSE_LEVELS - 1  # one sorted fine-context adjoint per fine level
+    counters = (fused_mha_forward, fused_mha_backward, scatter_rows_sorted, scatter_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    for fn in counters:
+        fn.launches = 0
+    steps = []
+    for i in range(TRAIN_STEPS):
+        start = [fn.launches for fn in counters]
+        t0 = time.perf_counter()
+        out = trainer.step(batch)
+        loss = out["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = tuple(fn.launches - n for fn, n in zip(counters, start))
+        assert np.isfinite(loss), loss
+        assert launched == (per_step, per_step, gathers, 0), launched
+        steps.append(dict(step=i, seconds=seconds, loss=loss, fwd_launches=launched[0],
+                          bwd_launches=launched[1], gather_launches=launched[2]))
+        parts = ", ".join(f"{k} {v.item():.4f}" for k, v in out.items() if k != "loss")
+        print(f"train_act3d step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f} ({parts}); "
+              f"{launched[0]} fused_mha_fwd + {launched[1]} fused_mha_bwd + {launched[2]} "
+              f"scatter_rows_sorted launches | {card}", flush=True)
+    launches = tuple(fn.launches for fn in counters)
+    peak = torch.cuda.max_memory_allocated()
+    changed, unchanged = 0, []
+    for n, p in model.named_parameters():
+        if "backbone" in n:
+            assert torch.equal(p, before[n]), n
+        elif torch.equal(p, before[n]):
+            unchanged.append(n)
+        else:
+            changed += 1
+    # only the biases of FPN levels the model does not read (zero gradient,
+    # no decay) may stay as they were
+    assert changed and all("feature_pyramid" in n and n.endswith("bias")
+                           for n in unchanged), unchanged
+    warm = [st["seconds"] for st in steps[1:]]
+    print(f"train_act3d: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps "
+          f"1-{TRAIN_STEPS - 1}; min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f}); "
+          f"peak memory {peak / 2**20:.1f} MiB, resident before the first step "
+          f"{resident / 2**20:.1f} MiB; {changed} trainable tensors changed, backbone "
+          f"unchanged | {card}", flush=True)
+
+    eval_batch = {k: v[:KEYPOSE_EVAL_B] for k, v in batch.items()}
+    start = [fn.launches for fn in counters]
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate([eval_batch])
+    seconds = time.perf_counter() - t0
+    launched = tuple(fn.launches - n for fn, n in zip(counters, start))
+    assert launched == (per_step, 0, 0, 0), launched
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    print(f"train_act3d evaluate: batch {KEYPOSE_EVAL_B}, "
+          f"{ACT3D_CFG['num_ghost_points_val']} ghost points, {seconds * 1e3:.1f} ms; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+    return launches, steps, dict(peak_memory_bytes=peak, resident_memory_bytes=resident,
+                                 eval_seconds=seconds, eval_metrics=metrics)
+
+
 def phase_serve(dev, card):
     rng = np.random.default_rng(SEED)
     bank = rng.normal(size=(N_INSTR, 512)).astype(np.float32)
@@ -537,6 +794,8 @@ def phase_serve(dev, card):
                   for t in [*model.parameters(), *model.buffers()])
     fused_mha_forward.launches = 0
     fused_mha_backward.launches = 0
+    scatter_rows_sorted.launches = 0
+    scatter_rows.launches = 0
     latencies = []
     for step in range(N_KEYSTEPS):
         before = fused_mha_forward.launches
@@ -559,6 +818,7 @@ def phase_serve(dev, card):
               f"{phases['act3d'] * 1e3:.1f} ms, sampler {phases['sampler'] * 1e3:.1f} ms), "
               f"{launched} fused_mha_fwd launches | {card}", flush=True)
     assert fused_mha_backward.launches == 0, fused_mha_backward.launches
+    assert scatter_rows_sorted.launches == scatter_rows.launches == 0
     peak = torch.cuda.max_memory_allocated()
     print(f"serve peak memory: {peak / 2**20:.1f} MiB; resident before the first keystep "
           f"{resident / 2**20:.1f} MiB, of which weights and buffers "
@@ -594,54 +854,86 @@ def main() -> int:
     rows = phase_kernels(dev, card)
     phase_small_keystep(dev)
     serve_launches, latencies, memory = phase_serve(dev, card)
-    train_fwd_rows, train_bwd_rows = phase_train_kernels(dev, card)
+    train_fwd_rows, train_bwd_rows = phase_train_kernels(
+        dev, card, TRAIN_SHAPES, PLANNER_CFG["embedding_dim"], 8, SEED + 1)
+    kp_fwd_rows, kp_bwd_rows = phase_train_kernels(
+        dev, card, KEYPOSE_SHAPES, ACT3D_CFG["embedding_dim"], ACT3D_CFG["num_attn_heads"],
+        SEED + 2)
+    gather_rows = phase_gather_kernels(dev, card)
     phase_small_train(dev)
+    phase_small_keypose(dev)
     (train_fwd, train_bwd), train_steps, train_memory = phase_train(dev, card)
+    kp_launches, kp_steps, kp_memory = phase_train_act3d(dev, card)
 
     def per_unit(shape_rows, key):
         """Σ over one keystep's (or training step's) launches of the
         per-call numbers at each shape."""
         return sum(r[key[0]] * r[key[1]] for r in shape_rows if r[key[1]])
 
-    serve = {k: per_unit(rows, (k, "per_keystep"))
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms", "ops_ms",
-                       "bytes_ms")}
-    train = {k: per_unit(train_fwd_rows, (k, "per_step"))
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
-    bwd = {k: per_unit(train_bwd_rows, (k, "per_step"))
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")
+    serve = {k: per_unit(rows, (k, "per_keystep")) for k in keys + ("eager_ms",)}
+    train = {k: per_unit(train_fwd_rows, (k, "per_step")) for k in keys}
+    bwd = {k: per_unit(train_bwd_rows, (k, "per_step")) for k in keys}
+    kp_fwd = {k: per_unit(kp_fwd_rows, (k, "per_step")) for k in keys}
+    kp_bwd = {k: per_unit(kp_bwd_rows, (k, "per_step")) for k in keys}
+
+    def total(*units):
+        out = {k: sum(u[k] for u in units) for k in keys}
+        out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+        return out
+
+    fwd_total, bwd_total = total(serve, train, kp_fwd), total(bwd, kp_bwd)
     kernels = [{
         "name": "fused_mha_fwd",
         "route": "cuda",
         "source": "act3d_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:212",
-        "launches": serve_launches + train_fwd,
-        "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows),
-        **{k: serve[k] + train[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "bound_by": ("operations" if serve["ops_ms"] + train["ops_ms"]
-                     >= serve["bytes_ms"] + train["bytes_ms"] else "bytes"),
-        "per": "one serving keystep plus one training step: sum over their launches of "
-               "the per-call device time at each shape (serve and train below apart)",
+        "launches": serve_launches + train_fwd + kp_launches[0],
+        "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows + kp_fwd_rows),
+        **{k: fwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        "per": "one serving keystep plus one ChainedDiffuser training step plus one Act3D "
+               "training step: sum over their launches of the per-call device time at each "
+               "shape (serve, train and keypose_train below apart)",
         "serve": dict(serve, launches=serve_launches, keysteps=latencies, **memory),
         "train": dict(train, launches=train_fwd),
-        "shapes": rows + train_fwd_rows,
+        "keypose_train": dict(kp_fwd, launches=kp_launches[0]),
+        "shapes": rows + train_fwd_rows + kp_fwd_rows,
         "card": card,
     }, {
         "name": "fused_mha_bwd",
         "route": "cuda",
         "source": "act3d_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:289",
-        "launches": train_bwd,
-        "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows),
-        **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "bound_by": "operations" if bwd["ops_ms"] >= bwd["bytes_ms"] else "bytes",
-        "per": "one training step: sum over its launches of the per-call device time at "
-               "each shape; library_ms is SDPA's forward + backward minus its forward",
-        "train_steps": train_steps,
-        **train_memory,
-        "shapes": train_bwd_rows,
+        "launches": train_bwd + kp_launches[1],
+        "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows + kp_bwd_rows),
+        **{k: bwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        "per": "one ChainedDiffuser training step plus one Act3D training step: sum over "
+               "their launches of the per-call device time at each shape; library_ms is "
+               "SDPA's forward + backward minus its forward",
+        "train": dict(bwd, launches=train_bwd, train_steps=train_steps, **train_memory),
+        "keypose_train": dict(kp_bwd, launches=kp_launches[1]),
+        "shapes": train_bwd_rows + kp_bwd_rows,
         "card": card,
     }]
+    for name, source, replaces, launched, per_step in (
+            ("scatter_rows_sorted", "act3d_tpu_torch/csrc/scatter_rows.cu",
+             "act3d_tpu/kernels/gather.py:132", kp_launches[2], KEYPOSE_LEVELS - 1),
+            ("scatter_rows", "act3d_tpu_torch/csrc/scatter_rows.cu",
+             "act3d_tpu/kernels/gather.py:71", kp_launches[3], 0)):
+        (row,) = gather_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launched, "max_abs_err": row["max_abs_err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "per": "one call at the Act3D fine-level shape (B=16, K=3072, C=60, P=49152); "
+                   f"{per_step} calls per Act3D training step"
+                   + ("" if per_step else " (no model path in the JAX package: the adjoint "
+                      "of gather_tokens(sorted_indices=False))"),
+            "per_step_ms": row["ms"] * per_step,
+            "shapes": [row],
+            "card": card,
+        })
+    kernels[2].update(keypose_train_steps=kp_steps, **kp_memory)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA (Hopper) port of the Act3D + ChainedDiffuser serving path.
+"""PyTorch + CUDA (Hopper) port of Act3D + ChainedDiffuser: serving and training.
 
 A second package beside the JAX reference ``act3d_tpu``.  It imports
 ``torch`` only — never ``jax``, ``flax`` or anything of ``act3d_tpu`` —
@@ -8,11 +8,14 @@ row stats as (B, L, 2H)) so the two can be compared like with like.
 
 Layout mirrors the JAX package: ``ops/``, ``kernels/`` (hand-written CUDA
 kernels from ``csrc/`` with their plain PyTorch versions), ``nn/``,
-``models/``, ``eval/`` and ``convert.py`` (flax params -> state_dict).
+``models/``, ``eval/``, ``train/`` (the training steps and the two training
+CLIs), ``data/`` (packaged episodes, the host data path and the device
+feeder), ``core/`` (the CLIs' config) and ``convert.py`` (flax params ->
+state_dict).
 
-Entry points (the model constructors, :class:`eval.actioner.Actioner`)
-default to ``device="cuda"`` and raise when no card is present; pass
-``device="cpu"`` explicitly to run the plain versions on the CPU.
+Entry points (the model constructors, :class:`eval.actioner.Actioner`, the
+training CLIs) default to the card and raise when no card is present; pass
+``device="cpu"`` (``--device cpu``) to run the plain versions on the CPU.
 """
 
 from .device import resolve_device

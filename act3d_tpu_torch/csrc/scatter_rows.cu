@@ -1,9 +1,11 @@
 // Row-gather adjoint for unique indices, float32, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of act3d_tpu/kernels/gather.py:
+// Replaces three TPU kernels of act3d_tpu/kernels/gather.py:
 //   * onehot_scatter_rows_sorted (unique, ascending indices: the VJP of
 //     gather_tokens(..., sorted_indices=True), Act3D's fine-context gather);
-//   * onehot_scatter_rows (unique indices in any order).
+//   * onehot_scatter_rows (unique indices in any order);
+//   * onehot_scatter_rows_chunked (the sorted function again, with the
+//     tiles of one batch row split into n_chunks runs walked in-kernel).
 // Same contract:
 //   g (B, K, C) float32, unit stride along C, any batch and row strides;
 //   idx (B, K) int64, unique per batch row, in [0, P);
@@ -21,21 +23,35 @@
 // to write each output byte once, coalesced.
 //
 // Design (simple and correct first):
-//   * gather form: one block per tile of kTile output rows of one batch
-//     row; it writes every row of the tile exactly once, the matching g row
+//   * gather form: one block writes whole tiles of output rows of one batch
+//     row; it writes every row of a tile exactly once, the matching g row
 //     or zeros.  No zero-fill pass, no atomics.
-//   * sorted entry: unique ascending indices put every hit of the tile
-//     [p0, p0 + kTile) in one contiguous window [j_lo, j_hi) of idx[b],
-//     found by two binary searches (two warps, one each); the window's
-//     j + 1 are written into a shared slot table of the tile.  No (B, P)
-//     buffer.
+//   * sorted entries (sorted and chunked): unique ascending indices put
+//     every hit of a tile [p0, p0 + p_tile) in one contiguous window
+//     [j_lo, j_hi) of idx[b], found by two binary searches (two warps, one
+//     each); the window's j + 1 are written into a slot table of p_tile
+//     ints in dynamic shared memory.  No (B, P) buffer.  One kernel body
+//     serves both: one block per (b, chunk) walks its n_inner tiles in
+//     order.  The sorted entry launches it with p_tile = kTile and one tile
+//     per block.  The chunked entry keeps the TPU kernel's split: grid
+//     (B, n_chunks), each step looping over n_inner P-tiles of p_tile rows
+//     (on the TPU against a VMEM-resident (K, C) cotangent, to amortise the
+//     per-grid-step overhead).  The TPU's padding of P to p_tile * n_chunks
+//     sets only which rows each chunk owns; rows >= P are never written.
+//     There is no Mosaic tiling rule on the card, so every K, p_tile (up to
+//     the shared memory of a block) and n_chunks is taken, with no fallback
+//     to the sorted entry.  With few chunks the grid is small (B * n_chunks
+//     blocks: 64 at JAX's default of 4 chunks and B = 16, for 132 SMs), so
+//     that entry is no faster than the sorted one; it has no model path, in
+//     JAX as here.
 //   * unsorted entry: JAX's slot map (act3d_tpu/ops/geometry.py:93-105):
 //     a first kernel writes inv[b, idx[b, j]] = j + 1 into an int32 (B, P)
-//     map zeroed by cudaMemsetAsync; the tile pass reads its slots from inv.
-//   * stores: the tile is one contiguous span of rows * C floats of out;
+//     map zeroed by cudaMemsetAsync; one block per tile of kTile rows reads
+//     its slots from inv.
+//   * stores: a tile is one contiguous span of rows * C floats of out;
 //     consecutive threads write consecutive 16-byte float4s (C % 4 == 0 and
 //     16-byte aligned rows, e.g. C = 60 is 15 float4s), else floats.
-//   * an index outside the tile's range never lands in it, so indices that
+//   * an index outside a tile's range never lands in it, so indices that
 //     break the precondition give a wrong result but no stray write.
 
 #include <cuda_runtime.h>
@@ -45,6 +61,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 128;  // output rows per block
+constexpr int kMaxChunkedTile = 57344;  // p_tile ints in 224 KB of shared memory
 
 __device__ __forceinline__ int lower_bound(const int64_t* a, int n, int64_t v) {
   int lo = 0;
@@ -60,44 +77,13 @@ __device__ __forceinline__ int lower_bound(const int64_t* a, int n, int64_t v) {
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-slot_map_kernel(const int64_t* __restrict__ idx, int* __restrict__ inv, int K, int64_t P) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= K) return;
-  const int64_t p = idx[(size_t)b * K + j];
-  if (p >= 0 && p < P) inv[(size_t)b * P + p] = j + 1;
-}
-
-template <bool SORTED, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx,
-                    const int* __restrict__ inv, float* __restrict__ out, int K,
-                    int64_t P, int C, int64_t g_sb, int64_t g_sj) {
-  __shared__ int slot_s[kTile];  // j + 1 of the g row that lands on tile row r; 0 = none
-  __shared__ int window[2];
-  const int b = blockIdx.y;
-  const int64_t p0 = (int64_t)blockIdx.x * kTile;
-  const int rows = (int)min((int64_t)kTile, P - p0);
-
-  if (SORTED) {
-    const int64_t* idx_b = idx + (size_t)b * K;
-    if (threadIdx.x == 0) window[0] = lower_bound(idx_b, K, p0);
-    if (threadIdx.x == 32) window[1] = lower_bound(idx_b, K, p0 + kTile);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) slot_s[r] = 0;
-    __syncthreads();
-    for (int j = window[0] + threadIdx.x; j < window[1]; j += kThreads) {
-      const int64_t r = idx_b[j] - p0;
-      if (r >= 0 && r < kTile) slot_s[r] = j + 1;
-    }
-  } else {
-    const int* inv_t = inv + (size_t)b * P + p0;
-    for (int r = threadIdx.x; r < kTile; r += kThreads) slot_s[r] = r < rows ? inv_t[r] : 0;
-  }
-  __syncthreads();
-
-  const float* g_b = g + (size_t)b * g_sb;
-  float* out_t = out + ((size_t)b * P + p0) * C;
+// Writes `rows` rows of C floats at out_t, one contiguous span: row r is g
+// row slot[r] - 1 (g_b's rows g_sj floats apart), or zeros where slot[r] is
+// 0.  Consecutive threads store consecutive float4s when VEC.
+template <bool VEC>
+__device__ __forceinline__ void write_tile(const int* slot, const float* __restrict__ g_b,
+                                           int64_t g_sj, float* __restrict__ out_t, int rows,
+                                           int C) {
   if (VEC) {
     const int c4 = C / 4;
     const int n = rows * c4;
@@ -105,7 +91,7 @@ scatter_rows_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx
     for (int i = threadIdx.x; i < n; i += kThreads) {
       const int r = i / c4;
       const int c = i - r * c4;
-      const int s = slot_s[r];
+      const int s = slot[r];
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
       if (s) val = reinterpret_cast<const float4*>(g_b + (size_t)(s - 1) * g_sj)[c];
       out4[i] = val;
@@ -115,24 +101,82 @@ scatter_rows_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx
     for (int i = threadIdx.x; i < n; i += kThreads) {
       const int r = i / C;
       const int c = i - r * C;
-      const int s = slot_s[r];
+      const int s = slot[r];
       out_t[i] = s ? g_b[(size_t)(s - 1) * g_sj + c] : 0.f;
     }
   }
 }
 
-template <bool SORTED>
-void launch_tiles(const float* g, const int64_t* idx, const int* inv, float* out, int B,
-                  int K, int64_t P, int C, int64_t g_sb, int64_t g_sj, int vec,
-                  cudaStream_t stream) {
-  const dim3 grid((unsigned)((P + kTile - 1) / kTile), B);
-  if (vec) {
-    scatter_rows_kernel<SORTED, true><<<grid, kThreads, 0, stream>>>(
-        g, idx, inv, out, K, P, C, g_sb, g_sj);
-  } else {
-    scatter_rows_kernel<SORTED, false><<<grid, kThreads, 0, stream>>>(
-        g, idx, inv, out, K, P, C, g_sb, g_sj);
+__global__ void __launch_bounds__(kThreads)
+slot_map_kernel(const int64_t* __restrict__ idx, int* __restrict__ inv, int K, int64_t P) {
+  const int b = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= K) return;
+  const int64_t p = idx[(size_t)b * K + j];
+  if (p >= 0 && p < P) inv[(size_t)b * P + p] = j + 1;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ inv,
+                    float* __restrict__ out, int64_t P, int C, int64_t g_sb, int64_t g_sj) {
+  __shared__ int slot_s[kTile];  // j + 1 of the g row that lands on tile row r; 0 = none
+  const int b = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * kTile;
+  const int rows = (int)min((int64_t)kTile, P - p0);
+  const int* inv_t = inv + (size_t)b * P + p0;
+  for (int r = threadIdx.x; r < kTile; r += kThreads) slot_s[r] = r < rows ? inv_t[r] : 0;
+  __syncthreads();
+  write_tile<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_chunked_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx,
+                            float* __restrict__ out, int K, int64_t P, int C, int64_t g_sb,
+                            int64_t g_sj, int p_tile, int64_t n_inner) {
+  extern __shared__ int chunk_slots[];  // [p_tile]
+  __shared__ int window[2];
+  const int b = blockIdx.y;
+  const int64_t* idx_b = idx + (size_t)b * K;
+  const float* g_b = g + (size_t)b * g_sb;
+  for (int64_t t = (int64_t)blockIdx.x * n_inner; t < (int64_t)(blockIdx.x + 1) * n_inner;
+       ++t) {
+    const int64_t p0 = t * p_tile;
+    if (p0 >= P) break;  // the padded tail of the last chunks
+    const int rows = (int)min((int64_t)p_tile, P - p0);
+    __syncthreads();  // the previous tile's slots and window are no longer read
+    if (threadIdx.x == 0) window[0] = lower_bound(idx_b, K, p0);
+    if (threadIdx.x == 32) window[1] = lower_bound(idx_b, K, p0 + p_tile);
+    for (int r = threadIdx.x; r < rows; r += kThreads) chunk_slots[r] = 0;
+    __syncthreads();
+    for (int j = window[0] + threadIdx.x; j < window[1]; j += kThreads) {
+      const int64_t r = idx_b[j] - p0;
+      if (r >= 0 && r < rows) chunk_slots[r] = j + 1;
+    }
+    __syncthreads();
+    write_tile<VEC>(chunk_slots, g_b, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
   }
+}
+
+// Launches the sorted-index body on a (n_chunks, B) grid, each block
+// walking n_inner = ceil(P / (p_tile * n_chunks)) tiles of p_tile rows.
+int launch_chunked(const void* g, const void* idx, void* out, int B, int K, int64_t P, int C,
+                   int64_t g_sb, int64_t g_sj, int vec, int p_tile, int n_chunks,
+                   cudaStream_t stream) {
+  const int64_t per_chunk = (int64_t)p_tile * n_chunks;
+  const int64_t n_inner = (P + per_chunk - 1) / per_chunk;  // tiles per chunk
+  const size_t smem = (size_t)p_tile * sizeof(int);
+  auto kernel = vec ? scatter_rows_chunked_kernel<true> : scatter_rows_chunked_kernel<false>;
+  if (smem > 48 * 1024) {  // above the default limit only by opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(n_chunks, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const int64_t*>(idx), static_cast<float*>(out),
+      K, P, C, g_sb, g_sj, p_tile, n_inner);
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int B, int K, int64_t P, int C) {
@@ -153,10 +197,8 @@ extern "C" int act3d_scatter_rows_sorted_f32(const void* g, const void* idx, voi
                                              int64_t g_sb, int64_t g_sj, int vec,
                                              void* stream) {
   if (bad_shape(B, K, P, C)) return (int)cudaErrorInvalidValue;
-  launch_tiles<true>(static_cast<const float*>(g), static_cast<const int64_t*>(idx),
-                     nullptr, static_cast<float*>(out), B, K, P, C, g_sb, g_sj, vec,
-                     static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_chunked(g, idx, out, B, K, P, C, g_sb, g_sj, vec, kTile,
+                        (int)((P + kTile - 1) / kTile), static_cast<cudaStream_t>(stream));
 }
 
 // The unsorted entry also takes inv, an int32 (B, P) scratch buffer that it
@@ -174,7 +216,30 @@ extern "C" int act3d_scatter_rows_f32(const void* g, const void* idx, void* inv,
                                                    K, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  launch_tiles<false>(static_cast<const float*>(g), static_cast<const int64_t*>(idx), inv_i,
-                      static_cast<float*>(out), B, K, P, C, g_sb, g_sj, vec, st);
+  const dim3 grid((unsigned)((P + kTile - 1) / kTile), B);
+  if (vec) {
+    scatter_rows_kernel<true><<<grid, kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
+                                                          static_cast<float*>(out), P, C, g_sb,
+                                                          g_sj);
+  } else {
+    scatter_rows_kernel<false><<<grid, kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
+                                                           static_cast<float*>(out), P, C, g_sb,
+                                                           g_sj);
+  }
   return (int)cudaGetLastError();
+}
+
+// The chunked entry: the sorted entry's arguments plus p_tile (output rows
+// per tile, at most kMaxChunkedTile) and n_chunks (blocks per batch row).
+// P is split as the TPU kernel splits it: padded to a multiple of
+// p_tile * n_chunks, each chunk owning n_tiles / n_chunks consecutive tiles.
+extern "C" int act3d_scatter_rows_chunked_f32(const void* g, const void* idx, void* out,
+                                              int B, int K, int64_t P, int C, int64_t g_sb,
+                                              int64_t g_sj, int vec, int p_tile, int n_chunks,
+                                              void* stream) {
+  if (bad_shape(B, K, P, C) || p_tile < 1 || p_tile > kMaxChunkedTile || n_chunks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_chunked(g, idx, out, B, K, P, C, g_sb, g_sj, vec, p_tile, n_chunks,
+                        static_cast<cudaStream_t>(stream));
 }

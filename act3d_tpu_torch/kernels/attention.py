@@ -21,6 +21,11 @@ reproduced; the contract is semantic.
 to their plain versions and a CUDA tensor to the kernels: on a CUDA tensor
 they launch the kernel or raise.  :class:`FusedMHA` puts the two behind
 autograd.
+
+:func:`attention_core` replaces the single-head-layout TPU kernel
+``_attention_core_fwd_impl`` ((B·H, L, D) tensors, an optional (B·H, S)
+mask, no stats) with ``csrc/attention_core.cu``; its backward is the TPU
+kernel's jnp VJP in torch ops.  As in JAX, no model path calls it.
 """
 
 from __future__ import annotations
@@ -31,8 +36,12 @@ from typing import Optional
 import torch
 
 __all__ = [
+    "AttentionCore",
     "FusedMHA",
     "MAX_HEAD_DIM",
+    "attention_core",
+    "attention_core_forward",
+    "attention_core_reference",
     "dropout_keep",
     "fused_mha_backward",
     "fused_mha_backward_reference",
@@ -49,6 +58,7 @@ _ROW_TILE = 64  # rows staged per step of the backward's dk/dv pass
 _TARGET_BLOCKS = 264
 _FWD_SOURCE = "fused_mha_fwd.cu"
 _BWD_SOURCE = "fused_mha_bwd.cu"
+_CORE_SOURCE = "attention_core.cu"
 
 # ---------------------------------------------------------------- keep mask
 _M32 = 0xFFFFFFFF
@@ -369,6 +379,106 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed):
         raise RuntimeError(f"fused_mha_bwd launch failed: CUDA error {rc}")
     fused_mha_backward.launches += 1
     return dq, dk, dv
+
+
+# --------------------------------------------------- single-head-layout core
+def attention_core_reference(q, k, v, mask=None):
+    """Plain PyTorch version of ``csrc/attention_core.cu``: softmax(q kᵀ) v
+    per leading index of (BH, L, D) tensors, masked keys at -1e30."""
+    scores = q.float() @ k.float().transpose(-1, -2)
+    if mask is not None:
+        scores = scores.masked_fill(mask[:, None, :], MASKED_SCORE)
+    return (torch.softmax(scores, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _attention_core_backward(q, k, v, mask, grad_out):
+    """JAX's ``_attention_core_bwd`` (the standard softmax-attention VJP
+    with the scores recomputed) in torch ops: returns (dq, dk, dv)."""
+    scores = q @ k.transpose(-1, -2)
+    if mask is not None:
+        scores = scores.masked_fill(mask[:, None, :], MASKED_SCORE)
+    w = torch.softmax(scores, dim=-1)
+    dv = w.transpose(-1, -2) @ grad_out
+    dw = (grad_out @ v.transpose(-1, -2)) * w
+    ds = dw - dw.sum(dim=-1, keepdim=True) * w
+    return ds @ k, ds.transpose(-1, -2) @ q, dv
+
+
+def _check_core(q, k, v, mask):
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be (BH, L, D), (BH, S, D), (BH, S, D): q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] or k.shape[1] < 1:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)}")
+    devices = {q.device, k.device, v.device}
+    if mask is not None:
+        if mask.dtype != torch.bool or tuple(mask.shape) != tuple(k.shape[:2]):
+            raise ValueError("mask must be a (BH, S) bool tensor")
+        devices.add(mask.device)
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _core_fn():
+    from . import _build
+
+    fn = _build.load(_CORE_SOURCE).act3d_attention_core_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def attention_core_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q kᵀ) v on (BH, L, D) tensors, no autograd: the plain version
+    on a CPU tensor, the kernel on a CUDA one."""
+    _check_core(q, k, v, mask)
+    if q.device.type == "cpu":
+        return attention_core_reference(q, k, v, mask)
+    bh, l, d = q.shape
+    _check_cuda(mask, d, q=q, k=k, v=v)
+    fn = _core_fn()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                bh, l, k.shape[1], d, _threads_per_row(bh, l, 1), stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_core launch failed: CUDA error {rc}")
+    attention_core.launches += 1
+    return out
+
+
+class AttentionCore(torch.autograd.Function):
+    """:func:`attention_core_forward` under autograd; the backward is JAX's
+    jnp VJP in torch ops (the TPU kernel has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return attention_core_forward(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, mask = ctx.saved_tensors
+        return (*_attention_core_backward(q, k, v, mask, grad_out), None)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable single-head-layout attention core, the port of JAX
+    ``attention_core``: q (BH, L, D) pre-scaled and rotated, k/v (BH, S, D),
+    optional mask (BH, S) bool with True = masked (-1e30, so a fully masked
+    row gets uniform weights).  JAX's ``l_tile`` and ``interpret`` are TPU
+    knobs and have no counterpart."""
+    return AttentionCore.apply(q, k, v, mask)
+
+
+attention_core.launches = 0  # kernel launches since the last reset
 
 
 class FusedMHA(torch.autograd.Function):

@@ -1,20 +1,24 @@
 """Row-gather adjoint: CUDA kernel wrappers and their plain version.
 
-Replaces ``act3d_tpu/kernels/gather.py::onehot_scatter_rows_sorted`` and
-``onehot_scatter_rows`` with ``csrc/scatter_rows.cu``, hand-written for
-Hopper.  The contract is the TPU kernels': for a cotangent g (B, K, C) of
+Replaces ``act3d_tpu/kernels/gather.py::onehot_scatter_rows_sorted``,
+``onehot_scatter_rows`` and ``onehot_scatter_rows_chunked`` with the three
+entries of ``csrc/scatter_rows.cu``, hand-written for Hopper.  The
+contract is the TPU kernels': for a cotangent g (B, K, C) of
 rows gathered at idx (B, K), unique per batch row,
 
     dx[b, p, :] = sum_j [idx[b, j] == p] * g[b, j, :]     (B, P, C)
 
 which, the indices being unique, is one copy of a g row or zeros per output
-row: exact, with no accumulation.  :func:`scatter_rows_sorted` also needs
-the indices ascending per row (Act3D sorts its fine-context picks); that is
-the caller's promise, as in JAX, and is not checked on the hot path.
+row: exact, with no accumulation.  :func:`scatter_rows_sorted` and
+:func:`scatter_rows_chunked` also need the indices ascending per row
+(Act3D sorts its fine-context picks); that is the caller's promise, as in
+JAX, and is not checked on the hot path.  The chunked entry has no model
+path, in JAX as here.
 
-Both wrappers send a CPU tensor to :func:`scatter_rows_reference` (the slot
-map of ``act3d_tpu/ops/geometry.py::_slot_map_bwd`` in torch ops) and a
-CUDA tensor to the kernel: on a CUDA tensor they launch the kernel or raise.
+Every wrapper sends a CPU tensor to :func:`scatter_rows_reference` (the
+slot map of ``act3d_tpu/ops/geometry.py::_slot_map_bwd`` in torch ops) and
+a CUDA tensor to its kernel: on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import ctypes
 
 import torch
 
-__all__ = ["scatter_rows", "scatter_rows_reference", "scatter_rows_sorted"]
+__all__ = ["scatter_rows", "scatter_rows_chunked", "scatter_rows_reference",
+           "scatter_rows_sorted"]
 
 _SOURCE = "scatter_rows.cu"
+_MAX_CHUNKED_TILE = 57344  # kMaxChunkedTile: p_tile ints in a block's shared memory
 
 
 def scatter_rows_reference(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Tensor:
@@ -53,19 +59,24 @@ def _check(g, idx, out_rows):
         raise ValueError(f"unsupported device {g.device}")
 
 
-def _fn(name: str, n_pointers: int):
+def _fn(name: str, n_pointers: int, n_tiling: int = 0):
+    """The C entry ``name``: pointers, then (B, K, P, C, g's two strides,
+    vec), then ``n_tiling`` int tiling arguments, then the stream."""
     from . import _build
 
     fn = getattr(_build.load(_SOURCE), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_pointers
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+                       + [ctypes.c_int] * n_tiling + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(g, idx, out_rows, sorted_indices):
+def _launch(g, idx, out_rows, entry, tiling=()):
+    """Launch one entry ("sorted", "unsorted" or "chunked" with its
+    (p_tile, n_chunks)) on CUDA tensors."""
     if g.dtype != torch.float32:
         raise NotImplementedError(f"g is {g.dtype}: the kernel takes float32")
     if g.stride(2) != 1:
@@ -79,9 +90,12 @@ def _launch(g, idx, out_rows, sorted_indices):
     out = torch.empty((b, out_rows, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        shape = (b, k, out_rows, c, g.stride(0), g.stride(1), vec, stream)
-        if sorted_indices:
+        shape = (b, k, out_rows, c, g.stride(0), g.stride(1), vec, *tiling, stream)
+        if entry == "sorted":
             rc = _fn("act3d_scatter_rows_sorted_f32", 3)(
+                g.data_ptr(), idx.data_ptr(), out.data_ptr(), *shape)
+        elif entry == "chunked":
+            rc = _fn("act3d_scatter_rows_chunked_f32", 3, len(tiling))(
                 g.data_ptr(), idx.data_ptr(), out.data_ptr(), *shape)
         else:
             inv = torch.empty((b, out_rows), dtype=torch.int32, device=g.device)
@@ -97,7 +111,7 @@ def scatter_rows_sorted(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> to
     _check(g, idx, out_rows)
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
-    out = _launch(g, idx, out_rows, sorted_indices=True)
+    out = _launch(g, idx, out_rows, "sorted")
     scatter_rows_sorted.launches += 1
     return out
 
@@ -110,9 +124,30 @@ def scatter_rows(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Ten
     _check(g, idx, out_rows)
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
-    out = _launch(g, idx, out_rows, sorted_indices=False)
+    out = _launch(g, idx, out_rows, "unsorted")
     scatter_rows.launches += 1
     return out
 
 
 scatter_rows.launches = 0  # kernel launches since the last reset
+
+
+def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
+                         p_tile: int = 256, n_chunks: int = 4) -> torch.Tensor:
+    """(B, P, C) adjoint of a row gather at unique, ascending idx (B, K): the
+    function of :func:`scatter_rows_sorted`, with JAX's signature and
+    defaults.  ``p_tile`` (output rows per tile, at most 57344) and
+    ``n_chunks`` (blocks per batch row, each walking its run of tiles) set
+    only how the work is split, never the result."""
+    _check(g, idx, out_rows)
+    if not 1 <= p_tile <= _MAX_CHUNKED_TILE or n_chunks < 1:
+        raise ValueError(f"p_tile {p_tile} outside [1, {_MAX_CHUNKED_TILE}] or "
+                         f"n_chunks {n_chunks} < 1")
+    if g.device.type == "cpu":
+        return scatter_rows_reference(g, idx, out_rows)
+    out = _launch(g, idx, out_rows, "chunked", (p_tile, n_chunks))
+    scatter_rows_chunked.launches += 1
+    return out
+
+
+scatter_rows_chunked.launches = 0  # kernel launches since the last reset

@@ -3,8 +3,9 @@
 Counterpart of ``act3d_tpu/train/engine.py`` on one device: the loss and
 its backward run eagerly (the attention cores through the fused kernels),
 AdamW (``train/optim.py``) steps the trainable params, and checkpoints
-keep JAX's best/last semantics in ``best.pt`` / ``last.pt``.  The dp/fsdp
-mesh of the JAX trainer is not ported yet.
+keep JAX's best/last semantics in ``best.pt`` / ``last.pt`` (JAX writes
+``.msgpack``); :func:`resume` is the CLIs' ``--checkpoint`` /
+``--auto_resume``.  The dp/fsdp mesh of the JAX trainer is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch.nn as nn
 from ..nn.dropout import Generators
 from .optim import GradientAccumulator, make_optimizer
 
-__all__ = ["GracefulShutdown", "MetricLogger", "Trainer"]
+__all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume"]
 
 
 class GracefulShutdown:
@@ -119,18 +120,23 @@ class Trainer:
         self.step_count += 1
         return {"loss": loss.detach(), **(aux or {})}
 
-    def evaluate(self, batches: Iterable) -> Dict[str, float]:
-        """Average eval metrics over batches, in eval mode without grad."""
+    def eval_step(self, batch) -> Dict[str, torch.Tensor]:
+        """The metrics of one batch as ``metrics_fn`` returns them
+        (per-sample or scalar tensors), in eval mode without grad."""
         if self._metrics_fn is None:
             raise ValueError("no metrics_fn provided")
         self.model.eval()
+        with torch.no_grad():
+            return self._metrics_fn(batch, self.generators)
+
+    def evaluate(self, batches: Iterable) -> Dict[str, float]:
+        """Average eval metrics over batches, in eval mode without grad."""
         sums: Dict[str, float] = {}
         count = 0
-        with torch.no_grad():
-            for batch in batches:
-                for k, v in self._metrics_fn(batch, self.generators).items():
-                    sums[k] = sums.get(k, 0.0) + float(torch.as_tensor(v).float().mean())
-                count += 1
+        for batch in batches:
+            for k, v in self.eval_step(batch).items():
+                sums[k] = sums.get(k, 0.0) + float(torch.as_tensor(v).float().mean())
+            count += 1
         return {k: v / max(count, 1) for k, v in sums.items()}
 
     # ------------------------------------------------------- checkpointing
@@ -165,3 +171,16 @@ class Trainer:
         self.accumulator.load_state_dict(payload["optimizer"])
         self.step_count = payload["step"]
         self.best_loss = payload["best_loss"]
+
+
+def resume(trainer: Trainer, log_dir: Path, checkpoint: Optional[str] = None,
+           auto_resume: bool = True) -> Optional[Path]:
+    """Load ``checkpoint`` if given, else ``log_dir/last.pt`` when
+    ``auto_resume`` and it exists (a relaunch with the same command line
+    goes on from the last checkpoint).  Returns the path loaded, or None."""
+    path = Path(checkpoint) if checkpoint else Path(log_dir) / "last.pt"
+    if not checkpoint and not (auto_resume and path.exists()):
+        return None
+    print(f"Resuming from {path}")
+    trainer.load_checkpoint(path)
+    return path

@@ -8,9 +8,11 @@ Counterpart of ``act3d_tpu/train/flagship.py``:
     eval) over 3 levels, weights tied, instruction-conditioned, rotation
     from the query (reference scripts/train_act3d.sh:9-52).
 Batches carry the canonical keys (``trajectory``, ``trajectory_mask``,
-``rgbs``, ``pcds``, ``instr``, ``curr_gripper``, ``action``).  Compact
-batches (``expand_batch``), device augmentation, ``instr_id`` banks and
-bf16 come with the data slice; every kernel takes float32.
+``rgbs``, ``pcds``, ``instr``, ``curr_gripper``, ``action``).  The loss
+and metric functions take any model and criterion, so the CLIs
+(``main_keypose`` / ``main_trajectory``) build them from their config.
+Compact batches (``expand_batch``), device augmentation, ``instr_id``
+banks and bf16 are not ported yet; every kernel takes float32.
 """
 
 from __future__ import annotations
@@ -121,13 +123,14 @@ def keypose_loss_fn(model: Act3D, criterion, use_gt_sampling: bool = True):
     return loss_fn
 
 
-def keypose_metrics_fn(model: Act3D, criterion):
+def keypose_metrics_fn(model: Act3D, criterion, use_gt_sampling: bool = False):
     """(batch, generators) -> per-sample eval metrics: eval mode under
-    ``Trainer.evaluate`` (``num_ghost_points_val``), no gt sampling, as
+    ``Trainer.evaluate`` (``num_ghost_points_val``), gt sampling off unless
+    asked (--use_ground_truth_position_for_sampling_val), as
     main_keypose.py:160-173."""
 
     def metrics_fn(batch, generators):
-        pred = _keypose_pred(model, batch, generators, use_gt_sampling=False)
+        pred = _keypose_pred(model, batch, generators, use_gt_sampling)
         return criterion.compute_metrics(pred, batch["action"])
 
     return metrics_fn

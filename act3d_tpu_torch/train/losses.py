@@ -2,9 +2,9 @@
 
 Counterpart of ``act3d_tpu/train/losses.py``: ``soft_cross_entropy``,
 :class:`KeyposeLossAndMetrics` (soft-CE over the ghost-point pyramid +
-quaternion MSE + gripper MSE, reference main_keypose.py:295-482) and the
-host-side :func:`split_metrics_by_task`.  ``TrajectoryCriterion`` comes
-with the trajectory eval, after the data slice.
+quaternion MSE + gripper MSE, reference main_keypose.py:295-482), the
+host-side :func:`split_metrics_by_task` and
+:class:`TrajectoryCriterion`'s metrics of a sampled trajectory.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["KeyposeLossAndMetrics", "soft_cross_entropy", "split_metrics_by_task"]
+__all__ = ["KeyposeLossAndMetrics", "TrajectoryCriterion", "soft_cross_entropy",
+           "split_metrics_by_task"]
 
 
 def soft_cross_entropy(logits: torch.Tensor, soft_labels: torch.Tensor,
@@ -128,3 +129,36 @@ def split_metrics_by_task(metrics: Dict[str, object], tasks: List[str]) -> Dict[
         for task in np.unique(task_arr):
             out[f"{task}/{name}"] = float(v[task_arr == task].mean())
     return out
+
+
+class TrajectoryCriterion:
+    """Metrics of a sampled trajectory (reference main_trajectory.py:295-343).
+    The training loss itself is ``DiffusionPlanner.forward``."""
+
+    @staticmethod
+    def compute_metrics(pred: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """pred / gt: (B, L, 7).  Scalar metrics under '<name>' and
+        per-sample (B,) ones under 'per_sample/<name>'."""
+        pos_l2 = _l2(pred[..., :3] - gt[..., :3], -1)
+        quat_l1 = torch.minimum(torch.sum(torch.abs(pred[..., 3:7] - gt[..., 3:7]), -1),
+                                torch.sum(torch.abs(pred[..., 3:7] + gt[..., 3:7]), -1))
+        out = {
+            "traj_action_mse": torch.mean(torch.square(pred - gt)),
+            "traj_pos_l2": torch.mean(pos_l2),
+            "traj_pos_acc_001": torch.mean((pos_l2 < 0.01).float()),
+            "traj_rot_l1": torch.mean(quat_l1),
+            "traj_rot_acc_0025": torch.mean((quat_l1 < 0.025).float()),
+            "per_sample/traj_pos_l2": torch.mean(pos_l2, dim=-1),
+            "per_sample/traj_rot_l1": torch.mean(quat_l1, dim=-1),
+        }
+        # final-keypose metrics (useful when not goal-conditioned)
+        kp_pos_l2 = _l2(pred[:, -1, :3] - gt[:, -1, :3], -1)
+        kp_l1 = torch.minimum(torch.sum(torch.abs(pred[:, -1, 3:7] - gt[:, -1, 3:7]), -1),
+                              torch.sum(torch.abs(pred[:, -1, 3:7] + gt[:, -1, 3:7]), -1))
+        out.update({
+            "pos_l2": torch.mean(kp_pos_l2),
+            "pos_acc_001": torch.mean((kp_pos_l2 < 0.01).float()),
+            "rot_l1": torch.mean(kp_l1),
+            "rot_acc_0025": torch.mean((kp_l1 < 0.025).float()),
+        })
+        return out

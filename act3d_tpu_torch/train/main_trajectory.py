@@ -1,0 +1,121 @@
+"""Trajectory-diffusion training entry point (PyTorch).
+
+The port of ``act3d_tpu/train/main_trajectory.py``, the reference
+``main_trajectory.py``: packaged episodes -> ``RLBenchDataset`` (dense
+trajectories) -> ``DeviceFeeder`` -> ``Trainer.step`` (DiffusionPlanner's
+denoising loss, AdamW).  Every ``val_freq`` steps: the eval-mode loss
+averaged over the reference's number of batches on the train and the val
+set, then the sampler eval (the full reverse diffusion of
+``compute_trajectory`` on one val batch, scored by
+``TrajectoryCriterion``), a log line, and best/last checkpoints keyed on
+``traj_action_mse``.  SIGTERM/SIGINT checkpointing and ``--eval_only`` as
+in JAX; JAX's tensorboard scatter image is not ported (``--use_tensorboard``
+raises).  It runs on the card unless ``--device cpu`` is given.
+
+Run:
+  python -m act3d_tpu_torch.train.main_trajectory \\
+      --dataset /path/train --valset /path/val --tasks pick_and_lift \\
+      --instructions instructions.pkl --dense_interpolation 1 \\
+      --interpolation_length 50 --use_goal 1 --use_instruction 1
+
+As in ``main_keypose``, no example batch is drawn to initialise the model,
+and the loss is read only at each evaluation.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.config import TrajectoryConfig, parse_config
+from ..data.dataset import RLBenchDataset
+from ..data.feeder import to_tensors
+from ..device import resolve_device
+from ..models import DiffusionPlanner, compute_trajectory
+from ..utils.registry import count_parameters
+from .cli import (best_metric, dataset_args, host_batch, load_cli_instructions,
+                  n_eval_batches, run_training, workspace_bounds)
+from .engine import Trainer, resume
+from .flagship import diffusion_loss_fn, diffusion_metrics_fn
+from .losses import TrajectoryCriterion
+
+MODEL_KEYS = ("trajectory", "trajectory_mask", "rgbs", "pcds", "instr", "curr_gripper",
+              "action")
+
+
+def main(argv=None):
+    cfg = parse_config(TrajectoryConfig, argv)
+    dev = resolve_device(cfg.device)
+    bounds = workspace_bounds(cfg)
+    cfg.save(cfg.log_dir / "hparams.json")
+    instruction = load_cli_instructions(cfg)
+    common = dataset_args(cfg, instruction, bounds, return_low_lvl_trajectory=True,
+                          dense_interpolation=bool(cfg.dense_interpolation),
+                          interpolation_length=cfg.interpolation_length,
+                          action_dim=cfg.action_dim)
+    train_ds = RLBenchDataset(root=cfg.dataset, cache_size=cfg.cache_size, training=True,
+                              **common)
+    val_ds = RLBenchDataset(root=cfg.valset, cache_size=cfg.cache_size_val, training=False,
+                            **common)
+
+    torch.manual_seed(cfg.seed)
+    model = DiffusionPlanner(
+        image_size=cfg.image_size_tuple,
+        embedding_dim=cfg.embedding_dim,
+        output_dim=cfg.action_dim,
+        num_vis_ins_attn_layers=cfg.num_vis_ins_attn_layers,
+        num_query_cross_attn_layers=cfg.num_query_cross_attn_layers,
+        use_instruction=bool(cfg.use_instruction),
+        use_goal=bool(cfg.use_goal),
+        use_goal_at_test=bool(cfg.use_goal_at_test),
+        rotation_parametrization=cfg.rotation_parametrization,
+        diffusion_timesteps=cfg.diffusion_timesteps,
+        gripper_loc_bounds=tuple(map(tuple, bounds)),
+        device=dev,
+    )
+    print("Model parameters:", count_parameters(model))
+    trainer = Trainer(diffusion_loss_fn(model), model,
+                      metrics_fn=diffusion_metrics_fn(model), lr=cfg.lr,
+                      accumulate_grad_batches=cfg.accumulate_grad_batches,
+                      log_dir=cfg.log_dir, seed=cfg.seed)
+    resume(trainer, cfg.log_dir, cfg.checkpoint, bool(cfg.auto_resume))
+
+    def batches(dataset, batch_size):
+        return [to_tensors(host_batch(dataset, batch_size, MODEL_KEYS), dev)
+                for _ in range(n_eval_batches(cfg))]
+
+    def run_sampler_eval():
+        """The reference's run_inference path (main_trajectory.py:218-259):
+        100-step reverse diffusion on one val batch and its trajectory
+        metrics (per-sample entries left out)."""
+        vb = to_tensors(host_batch(val_ds, cfg.batch_size_val, MODEL_KEYS), dev)
+        model.eval()
+        pred = compute_trajectory(model, vb["trajectory_mask"], vb["rgbs"], vb["pcds"],
+                                  vb["instr"], vb["curr_gripper"], vb["action"],
+                                  generator=trainer.generators.device)
+        metrics = TrajectoryCriterion.compute_metrics(pred, vb["trajectory"])
+        return {k: float(v.mean()) for k, v in metrics.items()
+                if not k.startswith("per_sample/")}
+
+    def evaluate():
+        train_metrics = trainer.evaluate(batches(train_ds, cfg.batch_size))
+        val_metrics = trainer.evaluate(batches(val_ds, cfg.batch_size_val))
+        val_metrics.update(run_sampler_eval())
+        return train_metrics, val_metrics
+
+    try:
+        if cfg.eval_only:
+            metrics = trainer.evaluate(batches(val_ds, cfg.batch_size_val))
+            for k, v in sorted(metrics.items()):
+                print(f"{k}: {v:.4f}")
+            return metrics
+        evals = run_training(
+            cfg, trainer, lambda: host_batch(train_ds, cfg.batch_size, MODEL_KEYS),
+            dev, evaluate, "train-loss/noise_mse", best_metric(cfg, "traj_action_mse"))
+        return {"evals": evals}
+    finally:
+        if trainer.logger:
+            trainer.logger.close()
+
+
+if __name__ == "__main__":
+    main()

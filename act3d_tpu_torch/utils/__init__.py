@@ -1,1 +1,2 @@
-"""Helpers shared by tests and smoke runs."""
+"""Helpers shared by tests and smoke runs, and the CLIs' instruction and
+workspace-bound loaders (``registry``)."""

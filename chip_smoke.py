@@ -60,26 +60,60 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      fused_mha_bwd + 2 scatter_rows_sorted launches per step; prints step
      times and peak memory; then one Trainer.evaluate on a batch of 4
      (10000 ghost points).
-The second-to-last line is a JSON object of kernel numbers; the last is
-{"ok": true, "device": {...}}.  Without a card it exits non-zero before
-printing any result.
+ 12. attention_core: the single-head-layout kernel (no model path, as in
+     JAX) against its plain version at every attention site of both
+     training steps flattened to (B*H, L, 15), plus a padded mask and a
+     fully masked row, atol 2e-5 / rtol 1e-4; its gradient through
+     AttentionCore on the card against the CPU; device times beside the
+     bound, the plain version and SDPA (timing yardstick only).
+ 13. scatter_rows_chunked: the chunked row-scatter entry (no model path)
+     bit-exact against its plain version at the Act3D fine-level shape for
+     three layouts and at K = 3000, P = 49000 (padding), at JAX's defaults
+     (p_tile 256, 4 chunks) and at 17 chunks (two blocks per SM); device
+     times beside scatter_rows_sorted, the plain version and scatter_.
+ 14. cli_keypose: a fixture tree (pick_and_lift, 3 cameras at 256^2, 5-frame
+     episodes, instructions) in a temporary directory, then
+     act3d_tpu_torch.train.main_keypose.main with scripts/train_act3d.sh's
+     flags, --train_iters 6 --val_freq 3: finite losses, best.pt / last.pt,
+     18 + 18 + 2 launches in every training step, finite evaluations; a
+     second call with --train_iters 7 resumes at step 6.  Prints each
+     step's time and its wait in next(feeder), and the peak memory.
+ 15. cli_trajectory: the same for main_trajectory.main with
+     scripts/train_trajectory.sh's flags (batch 22, emb 120, 6 layers, 6D,
+     100 steps, dense interpolation to 50, goal, instructions),
+     --train_iters 4 --val_freq 4: 19 + 19 launches per training step, one
+     evaluation with the 100-step sampler at batch 4; resumes at step 4.
+Every main-path phase (serve, train, train_act3d and the two CLIs) runs
+with all launch counts set to 0 just before it and read just after.
+The second-to-last line is a JSON object of kernel numbers (six kernels);
+the last is {"ok": true, "device": {...}}.  Without a card it exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from act3d_tpu_torch.data.feeder import DeviceFeeder
+from act3d_tpu_torch.data.fixtures import make_dataset_tree, make_instructions
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.kernels import _build
 from act3d_tpu_torch.kernels.attention import (
+    attention_core,
+    attention_core_forward,
+    attention_core_reference,
     dropout_keep,
     fused_mha_backward,
     fused_mha_backward_reference,
@@ -88,12 +122,14 @@ from act3d_tpu_torch.kernels.attention import (
 )
 from act3d_tpu_torch.kernels.gather import (
     scatter_rows,
+    scatter_rows_chunked,
     scatter_rows_reference,
     scatter_rows_sorted,
 )
 from act3d_tpu_torch.models import Act3D, DiffusionPlanner
 from act3d_tpu_torch.nn.dropout import Generators
 from act3d_tpu_torch.ops.geometry import topk_nearest_context
+from act3d_tpu_torch.train import main_keypose, main_trajectory
 from act3d_tpu_torch.train.engine import Trainer
 from act3d_tpu_torch.train.flagship import (
     diffusion_loss_fn,
@@ -141,6 +177,31 @@ KEYPOSE_KEYS = ("rgbs", "pcds", "instr", "curr_gripper")
 # Act3D fine-level gather adjoint: B = 16, K = 32*32*3 context tokens out of
 # P = 128*128*3 points (levels 1 and 2 read the 128^2 res1 map), C = 60
 GATHER_B, GATHER_K, GATHER_P, GATHER_C = TRAIN_B, 32 * 32 * NCAM, 128 * 128 * NCAM, 60
+CHUNKED_DEFAULTS = (256, 4)  # JAX's p_tile and n_chunks
+# Every kernel of the port, by the name the kernel line gives it.
+KERNELS = {"fused_mha_fwd": fused_mha_forward, "fused_mha_bwd": fused_mha_backward,
+           "scatter_rows_sorted": scatter_rows_sorted, "scatter_rows": scatter_rows,
+           "scatter_rows_chunked": scatter_rows_chunked, "attention_core": attention_core}
+# The training CLIs at their reference scripts' flags (scripts/train_act3d.sh,
+# scripts/train_trajectory.sh) over a fixture tree of CLI_EPISODES episodes.
+REPO = Path(__file__).resolve().parent
+CLI_BOUNDS = REPO / "assets" / "tasks" / "74_hiveformer_tasks_location_bounds.json"
+CLI_EPISODES = 4
+KEYPOSE_CLI_FLAGS = [
+    "--batch_size", "16", "--batch_size_val", "4", "--lr", "1e-4", "--embedding_dim", "60",
+    "--num_ghost_points", "1000", "--num_ghost_points_val", "10000",
+    "--num_sampling_level", "3", "--weight_tying", "1", "--gp_emb_tying", "1",
+    "--use_instruction", "1", "--cache_size", "100", "--image_rescale", "0.75,1.25",
+    "--exp_log_dir", "exp",
+]
+TRAJECTORY_CLI_FLAGS = [
+    "--batch_size", "22", "--batch_size_val", "4", "--lr", "1e-4", "--embedding_dim", "120",
+    "--num_query_cross_attn_layers", "6", "--rotation_parametrization", "6D",
+    "--diffusion_timesteps", "100", "--dense_interpolation", "1",
+    "--interpolation_length", "50", "--use_goal", "1", "--use_goal_at_test", "0",
+    "--use_instruction", "1", "--cache_size", "600", "--image_rescale", "0.75,1.25",
+    "--exp_log_dir", "exp",
+]
 
 
 def planner_sites_per_denoise() -> int:
@@ -274,6 +335,14 @@ def bound_bwd(l, s, e, h, b, masked):
     v, stats (and the mask) and writes dq, dk, dv, each byte once."""
     flops = 10.0 * b * l * s * e
     nbytes = 4.0 * (4 * b * l * e + 4 * b * s * e + 2 * b * l * h) + (b * s if masked else 0)
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def bound_core(l, s, d, bh, masked):
+    """attention_core reads q, k, v (and the (BH, S) bool mask) and writes
+    out, each byte once; it keeps no softmax stats."""
+    flops = 4.0 * bh * l * s * d
+    nbytes = 4.0 * (2 * bh * l * d + 2 * bh * s * d) + (bh * s if masked else 0)
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -543,6 +612,124 @@ def phase_gather_kernels(dev, card):
     return rows
 
 
+def attention_core_sites():
+    """(site, BH, L, S, mask kind, launches per training step) of the
+    single-head-layout core: every attention site of the two training steps
+    flattened to (B*H, L, d = 15), plus the padded and fully masked checks.
+    The kernel has no model path (as in JAX); the per-step counts are those
+    of the fused kernel it would stand in for."""
+    sites = [(f"core.{site.split('.', 1)[1]}", TRAIN_B * ACT3D_CFG["num_attn_heads"], l, s,
+              kind, per_step) for site, l, s, kind, _, per_step in KEYPOSE_SHAPES]
+    sites += [(f"core.{site.split('.', 1)[1]}", TRAIN_B * 8, l, s, kind, per_step)
+              for site, l, s, kind, rate, per_step in TRAIN_SHAPES if rate or kind]
+    return sites
+
+
+def phase_attention_core(dev, card):
+    """The attention_core kernel against attention_core_reference at every
+    flattened training site (atol 2e-5 / rtol 1e-4), its gradient through
+    AttentionCore on the card against the CPU at a small size, and device
+    times beside the bound (bound_core), the plain version and SDPA (timing
+    yardstick only)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    side = torch.cuda.Stream()
+    d = ACT3D_CFG["embedding_dim"] // ACT3D_CFG["num_attn_heads"]
+    rows = []
+    for site, bh, l, s, kind, per_step in attention_core_sites():
+        b_mask = train_mask(kind, TRAIN_B, s, dev)
+        heads = bh // TRAIN_B
+        mask = None if b_mask is None else b_mask.repeat_interleave(heads, dim=0).contiguous()
+        q = torch.randn(bh, l, d, generator=gen, device=dev) * d ** -0.5
+        k, v = (torch.randn(bh, s, d, generator=gen, device=dev) for _ in range(2))
+        out = attention_core_forward(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = attention_core_reference(q, k, v, mask)
+        err = _max_errs([(out, ref)])
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+        if kind == "full":  # rows 1*heads .. 2*heads-1 of batch row 1: uniform weights
+            torch.testing.assert_close(out[heads], v[heads].mean(dim=0).expand(l, d),
+                                       atol=ATOL, rtol=RTOL)
+        iters = 20 if bh * l * s > 1e6 else 100
+        ms = device_ms(lambda: attention_core_forward(q, k, v, mask), iters, side)
+        plain_ms = device_ms(lambda: attention_core_reference(q, k, v, mask), iters, side)
+        attn_mask = None if mask is None else ~mask[:, None, None, :]
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=attn_mask, scale=1.0), iters, side)
+        row = dict(site=site, BH=bh, L=l, S=s, D=d, mask=kind, per_step=per_step,
+                   max_abs_err=err[0], max_rel_err=err[1], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, **_bound_row(*bound_core(l, s, d, bh, kind)))
+        rows.append(row)
+        print(f"attention_core {site:24s} BH={bh} L={l} S={s} D={d} mask={kind}: max_abs "
+              f"{err[0]:.3e} max_rel {err[1]:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, sdpa {library_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}) | {card}", flush=True)
+
+    # gradient through AttentionCore on the card against the CPU
+    small = [torch.randn(3, n, d, generator=gen, device=dev) * scale
+             for n, scale in ((24, 0.3), (40, 0.3), (40, 1.0))]
+    mask = torch.zeros(3, 40, dtype=torch.bool, device=dev)
+    mask[0, -7:] = True
+    mask[1] = True
+    g = torch.randn(3, 24, d, generator=gen, device=dev)
+    grads = []
+    for device in (dev, "cpu"):
+        leaves = [x.detach().to(device).requires_grad_() for x in small]
+        attention_core(*leaves, mask.to(device)).backward(g.to(device))
+        grads.append([x.grad.cpu() for x in leaves])
+    err = _max_errs(zip(*grads))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=BWD_RTOL)
+    print(f"attention_core gradient (BH=3, L=24, S=40, a padded and a fully masked row): "
+          f"card vs CPU max_abs {err[0]:.3e} max_rel {err[1]:.3e}", flush=True)
+    return rows
+
+
+def phase_chunked(dev, card):
+    """scatter_rows_chunked against its plain version, bit for bit, at the
+    Act3D fine-level shape for three index layouts and at a K that is not a
+    multiple of 128 with a P that needs padding; device times at JAX's
+    defaults and at a chunk count that gives two blocks per SM, beside
+    scatter_rows_sorted, the plain version and a zero-filled scatter_."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    side = torch.cuda.Stream()
+    b, k, p, c = GATHER_B, GATHER_K, GATHER_P, GATHER_C
+    filled = -(-2 * 132 // b)  # chunks per batch row for >= 2 blocks per SM
+    cases = [("topk_nearest", k, p), ("uniform", k, p), ("edges", k, p),
+             ("uniform", 3000, 49000)]
+    row = None
+    for layout, kk, pp in cases:
+        idx = gather_indices(layout, gen, dev, b, kk, pp)
+        g = torch.randn(b, kk, c, generator=gen, device=dev)
+        want = scatter_rows_reference(g, idx, pp)
+        for n_chunks in (CHUNKED_DEFAULTS[1], filled):
+            got = scatter_rows_chunked(g, idx, pp, CHUNKED_DEFAULTS[0], n_chunks)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, want)
+            print(f"chunked kernel {layout:12s} B={b} K={kk} P={pp} C={c} p_tile="
+                  f"{CHUNKED_DEFAULTS[0]} n_chunks={n_chunks}: exact {exact}", flush=True)
+            assert exact, (layout, kk, pp, n_chunks)
+        if layout != "topk_nearest":
+            continue
+        ms = device_ms(lambda: scatter_rows_chunked(g, idx, p, *CHUNKED_DEFAULTS), 20, side)
+        filled_ms = device_ms(lambda: scatter_rows_chunked(g, idx, p, CHUNKED_DEFAULTS[0],
+                                                           filled), 20, side)
+        sorted_ms = device_ms(lambda: scatter_rows_sorted(g, idx, p), 20, side)
+        plain_ms = device_ms(lambda: scatter_rows_reference(g, idx, p), 20, side)
+        library_ms = device_ms(lambda: g.new_zeros(b, p, c).scatter_(
+            1, idx[..., None].expand(-1, -1, c), g), 20, side)
+        row = dict(site=f"act3d.fine_gather.{layout}", B=b, K=k, P=p, C=c,
+                   p_tile=CHUNKED_DEFAULTS[0], n_chunks=CHUNKED_DEFAULTS[1], max_abs_err=0.0,
+                   ms=ms, n_chunks_filled=filled, ms_filled=filled_ms,
+                   scatter_rows_sorted_ms=sorted_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   **_bound_row(*bound_gather(b, k, p, c)))
+        print(f"chunked kernel {layout:12s} {ms:.4f} ms at n_chunks={CHUNKED_DEFAULTS[1]} "
+              f"({b * CHUNKED_DEFAULTS[1]} blocks), {filled_ms:.4f} ms at n_chunks={filled} "
+              f"({b * filled} blocks); scatter_rows_sorted {sorted_ms:.4f}, plain "
+              f"{plain_ms:.4f}, scatter_ {library_ms:.4f}, bound {row['bound_ms']:.5f} ms "
+              f"(bytes) | {card}", flush=True)
+    return row
+
+
 def phase_small_train(dev):
     """Loss and gradients of a small model on the card against the CPU
     (same weights, injected noise and timesteps, dropout off), then a
@@ -660,10 +847,6 @@ def phase_train(dev, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    fused_mha_forward.launches = 0
-    fused_mha_backward.launches = 0
-    scatter_rows_sorted.launches = 0
-    scatter_rows.launches = 0
     steps = []
     for i in range(TRAIN_STEPS):
         fwd0, bwd0 = fused_mha_forward.launches, fused_mha_backward.launches
@@ -722,8 +905,6 @@ def phase_train_act3d(dev, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    for fn in counters:
-        fn.launches = 0
     steps = []
     for i in range(TRAIN_STEPS):
         start = [fn.launches for fn in counters]
@@ -777,6 +958,108 @@ def phase_train_act3d(dev, card):
                                  eval_seconds=seconds, eval_metrics=metrics)
 
 
+@contextlib.contextmanager
+def recorded_steps():
+    """Records, for every Trainer.step run inside the block, the step's
+    number, its loss, its time to a synchronized end, the time the
+    DeviceFeeder.__next__ before it took, and the launches of each kernel
+    (in KERNELS order) that the step made.  The loss read and the
+    synchronize are this measurement's own: the CLIs' loop syncs only at
+    each evaluation."""
+    records, waits = [], []
+    step, feeder_next = Trainer.step, DeviceFeeder.__next__
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        batch = feeder_next(self)
+        waits.append(time.perf_counter() - t0)
+        return batch
+
+    def recorded(self, batch):
+        start = [fn.launches for fn in KERNELS.values()]
+        number = self.step_count
+        t0 = time.perf_counter()
+        out = step(self, batch)
+        loss = out["loss"].item()
+        torch.cuda.synchronize()
+        records.append(dict(
+            step=number, loss=loss, step_s=time.perf_counter() - t0,
+            data_wait_s=waits[-1] if waits else 0.0,
+            launches=tuple(fn.launches - n for fn, n in zip(KERNELS.values(), start))))
+        return out
+
+    Trainer.step, DeviceFeeder.__next__ = recorded, timed_next
+    try:
+        yield records
+    finally:
+        Trainer.step, DeviceFeeder.__next__ = step, feeder_next
+
+
+def write_fixture_tree(root, n_episodes):
+    """pick_and_lift episodes of 5 frames, 3 cameras at 256^2, and their
+    instructions, written by the port's fixture writer."""
+    make_dataset_tree(root / "data", tasks=("pick_and_lift",),
+                      episodes_per_variation=n_episodes, n_frames=5, n_cam=NCAM,
+                      image_size=256, seed=SEED)
+    ipath = root / "instructions.pkl"
+    ipath.write_bytes(pickle.dumps(make_instructions(("pick_and_lift",), seed=SEED)))
+    return root / "data", ipath
+
+
+def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric):
+    """One training CLI at its reference script's flags over a fixture
+    tree: ``iters`` steps with an evaluation every ``val_freq``; checks
+    finite losses, best.pt / last.pt, the kernel launches of every training
+    step and a finite ``metric`` in every evaluation; then the same command
+    line with one more step resumes from last.pt."""
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        tree, ipath = write_fixture_tree(tmp, CLI_EPISODES)
+        write_s = time.perf_counter() - t0
+        argv = ["--dataset", str(tree), "--valset", str(tree), "--instructions", str(ipath),
+                "--gripper_loc_bounds", str(CLI_BOUNDS), "--tasks", "pick_and_lift",
+                "--base_log_dir", str(tmp / "logs"), "--run_log_dir", "smoke", *flags,
+                "--val_freq", str(val_freq)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_steps() as steps:
+            evals = main_fn(argv + ["--train_iters", str(iters)])["evals"]
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for st in steps:
+            print(f"{name} step {st['step']}: {st['step_s'] * 1e3:.1f} ms, waited "
+                  f"{st['data_wait_s'] * 1e3:.1f} ms in next(feeder), loss {st['loss']:.4f}; "
+                  f"launches {dict(zip(KERNELS, st['launches']))} | {card}", flush=True)
+        assert [st["step"] for st in steps] == list(range(iters)), steps
+        assert all(np.isfinite(st["loss"]) for st in steps), steps
+        assert [st["launches"] for st in steps] == [per_step] * iters, steps
+        assert len(evals) == iters // val_freq and all(
+            np.isfinite(ev["loss"]) and np.isfinite(ev["val"][metric]) for ev in evals), evals
+        log_dir = tmp / "logs" / "exp" / "smoke"
+        assert (log_dir / "best.pt").exists() and (log_dir / "last.pt").exists()
+        with recorded_steps() as again:
+            main_fn(argv + ["--train_iters", str(iters + 1)])
+        assert [st["step"] for st in again] == [iters], again
+        assert again[0]["launches"] == per_step and np.isfinite(again[0]["loss"]), again
+    warm = [st["step_s"] for st in steps[1:]]
+    waits = [st["data_wait_s"] for st in steps]
+    print(f"{name}: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps 1-{iters - 1}; "
+          f"min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f}); feeder wait per step "
+          f"mean {np.mean(waits) * 1e3:.1f} ms (steps 1-: {np.mean(waits[1:]) * 1e3:.1f} ms), "
+          f"max {max(waits) * 1e3:.1f} ms; peak memory {peak / 2**20:.1f} MiB; evaluations "
+          + ", ".join(f"{ev['seconds']:.2f} s ({metric} {ev['val'][metric]:.4f})"
+                      for ev in evals)
+          + f"; resumed at step {iters}; whole run {seconds:.1f} s, fixture tree "
+          f"{write_s:.1f} s | {card}", flush=True)
+    return dict(steps=steps, evals=[dict(step=ev["step"], seconds=ev["seconds"],
+                                         metric=ev["val"][metric]) for ev in evals],
+                warm_step_ms=np.mean(warm) * 1e3, data_wait_ms=np.mean(waits) * 1e3,
+                peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
+
+
 def phase_serve(dev, card):
     rng = np.random.default_rng(SEED)
     bank = rng.normal(size=(N_INSTR, 512)).astype(np.float32)
@@ -792,10 +1075,6 @@ def phase_serve(dev, card):
     weights = sum(t.numel() * t.element_size()
                   for model in (actioner.keypose_model, actioner.traj_model)
                   for t in [*model.parameters(), *model.buffers()])
-    fused_mha_forward.launches = 0
-    fused_mha_backward.launches = 0
-    scatter_rows_sorted.launches = 0
-    scatter_rows.launches = 0
     latencies = []
     for step in range(N_KEYSTEPS):
         before = fused_mha_forward.launches
@@ -851,19 +1130,43 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {src}: {line.strip()}", flush=True)
 
+    main_path = {}  # the launches of every kernel in each main-path phase
+
+    def drive(phase, fn, *args):
+        """Run one main-path phase with every launch count set to 0 just
+        before it, and read the counts just after."""
+        for kernel in KERNELS.values():
+            kernel.launches = 0
+        out = fn(*args)
+        main_path[phase] = {name: kernel.launches for name, kernel in KERNELS.items()}
+        return out
+
     rows = phase_kernels(dev, card)
     phase_small_keystep(dev)
-    serve_launches, latencies, memory = phase_serve(dev, card)
+    serve_launches, latencies, memory = drive("serve", phase_serve, dev, card)
     train_fwd_rows, train_bwd_rows = phase_train_kernels(
         dev, card, TRAIN_SHAPES, PLANNER_CFG["embedding_dim"], 8, SEED + 1)
     kp_fwd_rows, kp_bwd_rows = phase_train_kernels(
         dev, card, KEYPOSE_SHAPES, ACT3D_CFG["embedding_dim"], ACT3D_CFG["num_attn_heads"],
         SEED + 2)
     gather_rows = phase_gather_kernels(dev, card)
+    core_rows = phase_attention_core(dev, card)
+    chunked_row = phase_chunked(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
-    (train_fwd, train_bwd), train_steps, train_memory = phase_train(dev, card)
-    kp_launches, kp_steps, kp_memory = phase_train_act3d(dev, card)
+    (train_fwd, train_bwd), train_steps, train_memory = drive("train", phase_train, dev, card)
+    kp_launches, kp_steps, kp_memory = drive("train_act3d", phase_train_act3d, dev, card)
+    per_step_kp = (18, 18, KEYPOSE_LEVELS - 1, 0, 0, 0)  # in KERNELS order
+    per_step_traj = (19, 19, 0, 0, 0, 0)
+    cli_kp = drive("cli_keypose", phase_cli, dev, card, "cli_keypose", main_keypose.main,
+                   KEYPOSE_CLI_FLAGS, 6, 3, per_step_kp, "mean/pos_l2_final")
+    cli_traj = drive("cli_trajectory", phase_cli, dev, card, "cli_trajectory",
+                     main_trajectory.main, TRAJECTORY_CLI_FLAGS, 4, 4, per_step_traj,
+                     "traj_action_mse")
+    for phase, counts in main_path.items():
+        print(f"main path {phase}: launches {counts}", flush=True)
+        assert counts["attention_core"] == counts["scatter_rows_chunked"] == 0, counts
+    launches = {name: sum(c[name] for c in main_path.values()) for name in KERNELS}
 
     def per_unit(shape_rows, key):
         """Σ over one keystep's (or training step's) launches of the
@@ -888,7 +1191,7 @@ def main() -> int:
         "route": "cuda",
         "source": "act3d_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:212",
-        "launches": serve_launches + train_fwd + kp_launches[0],
+        "launches": launches["fused_mha_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows + kp_fwd_rows),
         **{k: fwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
         "per": "one serving keystep plus one ChainedDiffuser training step plus one Act3D "
@@ -904,7 +1207,7 @@ def main() -> int:
         "route": "cuda",
         "source": "act3d_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:289",
-        "launches": train_bwd + kp_launches[1],
+        "launches": launches["fused_mha_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows + kp_bwd_rows),
         **{k: bwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
         "per": "one ChainedDiffuser training step plus one Act3D training step: sum over "
@@ -915,15 +1218,15 @@ def main() -> int:
         "shapes": train_bwd_rows + kp_bwd_rows,
         "card": card,
     }]
-    for name, source, replaces, launched, per_step in (
+    for name, source, replaces, per_step in (
             ("scatter_rows_sorted", "act3d_tpu_torch/csrc/scatter_rows.cu",
-             "act3d_tpu/kernels/gather.py:132", kp_launches[2], KEYPOSE_LEVELS - 1),
+             "act3d_tpu/kernels/gather.py:132", KEYPOSE_LEVELS - 1),
             ("scatter_rows", "act3d_tpu_torch/csrc/scatter_rows.cu",
-             "act3d_tpu/kernels/gather.py:71", kp_launches[3], 0)):
+             "act3d_tpu/kernels/gather.py:71", 0)):
         (row,) = gather_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launched, "max_abs_err": row["max_abs_err"],
+            "launches": launches[name], "max_abs_err": row["max_abs_err"],
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "per": "one call at the Act3D fine-level shape (B=16, K=3072, C=60, P=49152); "
                    f"{per_step} calls per Act3D training step"
@@ -934,6 +1237,36 @@ def main() -> int:
             "card": card,
         })
     kernels[2].update(keypose_train_steps=kp_steps, **kp_memory)
+    core = total({k: per_unit(core_rows, (k, "per_step")) for k in keys})
+    kernels.append({
+        "name": "attention_core", "route": "cuda",
+        "source": "act3d_tpu_torch/csrc/attention_core.cu",
+        "replaces": "act3d_tpu/kernels/attention.py:823",
+        "launches": launches["attention_core"],
+        "max_abs_err": max(r["max_abs_err"] for r in core_rows),
+        **{k: core[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        "per": "no model path (as in JAX): the attention forwards of one ChainedDiffuser "
+               "and one Act3D training step flattened to (B*H, L, 15), summed over their "
+               "per-step launch counts; library_ms is SDPA",
+        "shapes": core_rows,
+        "card": card,
+    })
+    kernels.append({
+        "name": "scatter_rows_chunked", "route": "cuda",
+        "source": "act3d_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": "act3d_tpu/kernels/gather.py:236",
+        "launches": launches["scatter_rows_chunked"],
+        **{k: chunked_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+        "per": "one call at the Act3D fine-level shape (B=16, K=3072, C=60, P=49152) at "
+               "JAX's p_tile=256, n_chunks=4; no model path (as in JAX)",
+        "shapes": [chunked_row],
+        "card": card,
+    })
+    for kernel in kernels:
+        kernel["main_path_launches"] = {phase: c[kernel["name"]]
+                                        for phase, c in main_path.items()}
+    kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """The row-gather adjoint of the port against the JAX package.
 
 The port's plain version (``act3d_tpu_torch.kernels.gather
-.scatter_rows_reference``, what both wrappers run on a CPU tensor) is held
+.scatter_rows_reference``, what every wrapper runs on a CPU tensor) is held
 against the three Pallas kernels of ``act3d_tpu/kernels/gather.py`` run in
-interpret mode, and against an explicit numpy scatter, at atol 0: with
+interpret mode, each through the port's wrapper of the same name
+(``scatter_rows``, ``scatter_rows_sorted``, ``scatter_rows_chunked``), and
+against an explicit numpy scatter, at atol 0: with
 unique indices every output row is one copy of a cotangent row or zeros.
 The index layouts are those of tests/test_kernels.py (uniform, clustered,
 K-edge-hugging, a small K below the windowed kernel's two blocks, a P that
@@ -22,6 +24,7 @@ import torch
 
 from act3d_tpu_torch.kernels.gather import (
     scatter_rows,
+    scatter_rows_chunked,
     scatter_rows_reference,
     scatter_rows_sorted,
 )
@@ -89,9 +92,11 @@ def test_plain_version_matches_the_pallas_kernels(kernel, layout, b, p, k, c, p_
     want = _explicit(g, idx, p)
     np.testing.assert_array_equal(np.asarray(_jax_kernel(kernel, g, idx, p, p_tile)), want)
 
-    wrapper = scatter_rows if kernel == "unsorted" else scatter_rows_sorted
+    wrapper = {"unsorted": scatter_rows, "sorted": scatter_rows_sorted,
+               "chunked": scatter_rows_chunked}[kernel]
+    tiling = dict(p_tile=p_tile, n_chunks=4) if kernel == "chunked" else {}
     before = wrapper.launches
-    got = wrapper(torch.from_numpy(g), torch.from_numpy(idx), p)  # CPU: the plain version
+    got = wrapper(torch.from_numpy(g), torch.from_numpy(idx), p, **tiling)  # CPU: plain
     assert wrapper.launches == before
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
@@ -136,6 +141,10 @@ def test_gather_without_gradient_and_wrapper_checks():
         scatter_rows(g, idx.float(), 10)
     with pytest.raises(ValueError, match="empty"):
         scatter_rows(g, idx, 0)
+    with pytest.raises(ValueError, match="p_tile"):
+        scatter_rows_chunked(g, idx, 10, p_tile=0)
+    with pytest.raises(ValueError, match="n_chunks"):
+        scatter_rows_chunked(g, idx, 10, n_chunks=0)
 
 
 def _cuda_case(layout, b, p, k, c, seed=0):
@@ -185,3 +194,28 @@ def test_cuda_kernels_take_strided_rows():
     assert torch.equal(scatter_rows_sorted(shifted, idx, 8192),
                        scatter_rows_reference(g, idx, 8192))
     assert torch.equal(scatter_rows(shifted, idx, 8192), scatter_rows_reference(g, idx, 8192))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["uniform", "clustered", "edges"])
+@pytest.mark.parametrize("b,p,k,c,p_tile,n_chunks", [
+    (16, 49152, 3072, 60, 256, 4),  # JAX's defaults at the Act3D fine-level shape
+    (16, 49152, 3072, 60, 256, 17),  # enough blocks for two per SM
+    (2, 1000, 300, 7, 64, 3),  # K % 128 != 0, P padded to p_tile * n_chunks
+    (3, 7000, 1000, 12, 100, 5),  # p_tile % 128 != 0
+    (2, 2048, 256, 12, 128, 4),  # the shape of the CPU cases
+])
+def test_cuda_chunked_kernel_matches_plain_version(layout, b, p, k, c, p_tile, n_chunks):
+    """On the card: the chunked entry equals the plain version exactly at
+    every K, p_tile and n_chunks (no fallback to the sorted entry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, idx = _cuda_case(layout, b, p, k, c)
+    before = scatter_rows_chunked.launches
+    got = scatter_rows_chunked(g, idx, p, p_tile=p_tile, n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert scatter_rows_chunked.launches == before + 1
+    assert torch.equal(got, scatter_rows_reference(g, idx, p))
+    wide = torch.cat([g, g[:, :1]], dim=1)[:, 1:]  # a strided view, read in place
+    assert torch.equal(scatter_rows_chunked(wide, idx, p, p_tile, n_chunks),
+                       scatter_rows_reference(wide.contiguous(), idx, p))

@@ -17,46 +17,53 @@
 //   fully masked row (uniform p) gives the TPU kernel's dq and dk.
 //
 // What bounds it on the H100: 10*B*L*S*E FLOPs (five (L, S, d) products
-// per head: q k^T, dO v^T, p^T dO, ds k, ds^T q) against 67 TFLOP/s of
-// float32 outside the tensor cores, e.g. 2.95 GFLOP = 44 us at the
-// training site B=16, L=50, S=3074, E=120; the bytes (q, dO, dq: B*L*E
-// each; k, v, dk, dv: B*S*E each; stats and delta) are 95 MB there, 28 us
-// at 3.35 TB/s.  So it is bound by operations, plus L*S*H exponentials.
+// per head: k q^T, v dO^T, p^T dO, ds^T q, ds k) and L*S*H exponentials.
+// At float32 accuracy on the tensor cores (3xTF32, 165 TFLOP/s) the
+// training site B=16, L=50, S=3074, E=120 is 18 us of products; the bytes
+// (q, dO, dq: B*L*E each; k, v, dk, dv: B*S*E each) are 95 MB, 28 us at
+// 3.35 TB/s.
 //
-// Design (simple, deterministic; wgmma, TMA and padding d to 16 are later
-// work).  Hopper blocks run in no order, so the TPU's sequential walk over
-// L-tiles with dk/dv carried in VMEM becomes two passes of one source:
-//   (a) dk/dv pass: one block per (key tile, head, batch, L split).  Each
-//       key is owned by a group of `tpk` threads of one warp that visit
-//       every tpk-th query row; q, dO, m, 1/l, delta (and the dropout row
-//       keys) stream through shared memory in tiles of 64 rows.  dk and dv
-//       of the key accumulate in registers and are merged over the group
-//       with warp shuffles.  When B*H*key-tiles gives too few blocks (the
-//       L=3072, S=53 site has 128), L is split over `nsplit` blocks whose
-//       partial dk/dv go to a workspace and are summed in a fixed order by
-//       a third kernel, so the result is the same on every run.
-//   (b) dq pass: the forward's layout, one block per (query tile, head,
-//       batch), `tpr` threads per row, K/V (and the mask) stream through
-//       shared memory in tiles of 64 keys; dq merged with warp shuffles.
-//   Both passes recompute p = exp(s - m) / l from the saved stats and
-//   regenerate the keep mask from the hash; 7d FMAs per score in all
-//   (s twice, dO . v twice, dv, dk, dq) against the 5d of the bound.
-//   Ragged L and S edges are masked in the kernels; head dims up to 64
-//   (templated register arrays of 16, 32 or 64); shared-memory row strides
-//   are odd so the lanes of a group read distinct banks.
+// Design: one pass, 5d multiply-adds per score (the bound's count).
+//   * one block per (key tile, head, batch, L split); `key_warps` warps of
+//     16 keys each.  The block's K and V are staged once, split into
+//     (big, small) TF32 halves in shared memory, d padded with zeros to
+//     DP = 8, 16, 32 or 64.
+//   * the block walks its rows in tiles of 32 (fewer when a split has
+//     fewer rows: more blocks fit on an SM at L = 1), q and dO split into
+//     shared memory with m, 1/l, delta and the dropout row keys.  For every 8
+//     rows each warp computes s^T = k q^T and dp^T = v dO^T for its 16
+//     keys (tensor cores, 3xTF32), then p, the keep mask and ds once per
+//     score, and accumulates dv += p^T dO and dk += ds^T q in registers;
+//     the score fragments feed those products directly (mma_tf32.cuh).
+//   * ds of the row tile goes to shared memory; after a barrier the warps
+//     share the tile's dq = ds k (16 rows x 8 dims per task) over the
+//     block's keys.  With one key tile (S <= 16 * key_warps) dq is written
+//     directly; otherwise each key tile writes its own slab of a workspace
+//     and a second kernel sums the slabs in tile order.
+//   * when key tiles x H x B alone cannot fill the card (S = 53 sites), L
+//     is split over `nsplit` blocks: each writes partial dk/dv slabs and the
+//     same summing kernel adds them in split order.  No atomics: a run
+//     repeated gives the same bits.
+//   * ragged L and S edges are masked in the kernel (p = 0 past the last
+//     key, zero rows past the last row; nothing written for either).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowTile = 64;
-constexpr int kKeyTile = 64;
+// rows staged per step; scripts/ab_fused_mha_plans.py builds 16 and 64
+#ifndef ACT3D_BWD_ROW_TILE
+#define ACT3D_BWD_ROW_TILE 32
+#endif
+constexpr int kRowTile = ACT3D_BWD_ROW_TILE;
+constexpr int kMaxKeyWarps = 8;
 constexpr float kMaskedScore = -1e30f;
+constexpr size_t kMaxSmem = 232448;  // bytes a block may use on the H100
 
 struct Dropout {
   uint32_t seed;
@@ -64,302 +71,370 @@ struct Dropout {
   float inv_keep;
 };
 
-template <int DMAX>
-__device__ __forceinline__ float head_dot(const float* a, const float* b, int d) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    if (c < d) s = fmaf(a[c], b[c], s);
-  }
-  return s;
+__host__ __device__ constexpr int ds_stride(int key_block) { return key_block + 8; }
+
+// Rows staged per step of one launch: kRowTile, or fewer when a split has
+// fewer rows (the L = 1 site), so more blocks fit on an SM; a multiple of
+// 16, since the dq tasks read ds in 16-row groups.
+int row_tile(int rows_per_split) {
+  const int r16 = (rows_per_split + 15) & ~15;
+  return r16 < kRowTile ? r16 : kRowTile;
 }
 
-// Pass (a): dk and dv.  grid (key tiles * nsplit, H, B); blockIdx.x =
-// split * key_tiles + tile.  Writes dk/dv (nsplit == 1) or the split's
-// partial slab of the workspace (B, S, E) * split.
-template <int DMAX, bool DROPOUT>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ stats,
-                    const float* __restrict__ delta,
-                    const uint8_t* __restrict__ mask, float* __restrict__ dk,
-                    float* __restrict__ dv, int B, int L, int S, int H, int d,
-                    int tpk, int key_tiles, int rows_per_split, Dropout drop) {
+size_t smem_bytes(int dp, int key_warps, int rt) {
+  const int kb = 16 * key_warps;
+  const int sd = dp + 4;
+  const size_t floats =
+      (size_t)4 * kb * sd + 4 * rt * sd + 2 * rt * ds_stride(kb) + 4 * rt;
+  return floats * sizeof(float) + kb;
+}
+
+// grid (key_tiles * nsplit, H, B), blockIdx.x = split * key_tiles + tile;
+// blockDim 32 * key_warps.  dq_parts == nullptr: write dq, else the tile's
+// slab dq_parts[tile] (key_tiles, B, L, E).  dkv_parts == nullptr: write
+// dk/dv, else the split's slabs dk: dkv_parts[split], dv:
+// dkv_parts[nsplit + split] (each B, S, E).
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(32 * kMaxKeyWarps)
+mha_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ stats, const float* __restrict__ delta,
+               const uint8_t* __restrict__ mask, float* __restrict__ dq,
+               float* __restrict__ dk, float* __restrict__ dv,
+               float* __restrict__ dq_parts, float* __restrict__ dkv_parts, int B,
+               int L, int S, int H, int d, int key_tiles, int nsplit,
+               int rows_per_split, int rt, Dropout drop) {
+  constexpr int SD = DP + 4;
+  constexpr int KD = DP / 8;
+  const int kw = blockDim.x >> 5;
+  const int KB = 16 * kw;
+  const int DS = ds_stride(KB);
   extern __shared__ float smem[];
-  const int ds = d | 1;
-  float* q_s = smem;                       // [kRowTile][ds]
-  float* do_s = q_s + kRowTile * ds;       // [kRowTile][ds]
-  float* m_s = do_s + kRowTile * ds;       // [kRowTile]
-  float* r_s = m_s + kRowTile;             // [kRowTile] 1 / l
-  float* dl_s = r_s + kRowTile;            // [kRowTile] delta
-  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dl_s + kRowTile);  // row keys
+  float* kb = smem;                        // [KB][SD] k, big
+  float* ks = kb + KB * SD;                //          k, small
+  float* vb = ks + KB * SD;                // [KB][SD] v
+  float* vs = vb + KB * SD;
+  float* qb = vs + KB * SD;                // [rt][SD] q
+  float* qs = qb + rt * SD;
+  float* ob = qs + rt * SD;                // [rt][SD] dO
+  float* os = ob + rt * SD;
+  float* db = os + rt * SD;                // [rt][DS] ds (row, key)
+  float* dsm = db + rt * DS;
+  float* m_s = dsm + rt * DS;              // [rt] m
+  float* r_s = m_s + rt;                   //      1 / l
+  float* dl_s = r_s + rt;                  //      delta
+  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dl_s + rt);  // row keys
+  uint8_t* km_s = reinterpret_cast<uint8_t*>(rk_s + rt);    // [KB] mask
 
   const int E = H * d;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int tile = blockIdx.x % key_tiles;
   const int split = blockIdx.x / key_tiles;
-  const int keys_per_block = kThreads / tpk;
-  const int group = threadIdx.x / tpk;
-  const int lane = threadIdx.x % tpk;
-  const int j = tile * keys_per_block + group;
-  const bool active = j < S;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int kdu = (d + 7) >> 3;
+  const int k0 = tile * KB;
+  const int nk = min(KB, S - k0);
+  const int nk8 = (nk + 7) & ~7;
+  const bool warp_keys = warp * 16 < nk;
 
-  float kr[DMAX], vr[DMAX], dkr[DMAX], dvr[DMAX];
-  const size_t kv_off = ((size_t)b * S + (active ? j : 0)) * E + h * d;
-#pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    kr[c] = (active && c < d) ? k[kv_off + c] : 0.f;
-    vr[c] = (active && c < d) ? v[kv_off + c] : 0.f;
-    dkr[c] = 0.f;
-    dvr[c] = 0.f;
+  float* dq_out = dq_parts ? dq_parts + (size_t)tile * B * L * E : dq;
+  const size_t bse = (size_t)B * S * E;
+  float* dk_out = dkv_parts ? dkv_parts + (size_t)split * bse : dk;
+  float* dv_out = dkv_parts ? dkv_parts + (size_t)(nsplit + split) * bse : dv;
+
+  const float* k_b = k + ((size_t)b * S + k0) * E + h * d;
+  const float* v_b = v + ((size_t)b * S + k0) * E + h * d;
+  act3d_stage_pair<DP, SD>(k_b, v_b, E, nk, KB, d, kb, ks, vb, vs);  // zero rows past S
+  for (int j = threadIdx.x; j < KB; j += blockDim.x) {
+    km_s[j] = (j < nk && mask) ? mask[(size_t)b * S + k0 + j] : 0;
   }
-  const bool masked = active && mask && mask[(size_t)b * S + j];
 
-  const int r0 = split * rows_per_split;
-  const int r1 = min(L, r0 + rows_per_split);
-  const float* q_b = q + (size_t)b * L * E + h * d;
-  const float* do_b = dout + (size_t)b * L * E + h * d;
-
-  for (int i0 = r0; i0 < r1; i0 += kRowTile) {
-    const int n = min(kRowTile, r1 - i0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int x = threadIdx.x; x < n * d; x += kThreads) {
-      const int i = x / d;
-      const int c = x - i * d;
-      const size_t g = (size_t)(i0 + i) * E + c;
-      q_s[i * ds + c] = q_b[g];
-      do_s[i * ds + c] = do_b[g];
+  float dka[KD][4], dva[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dka[kk][i] = 0.f;
+      dva[kk][i] = 0.f;
     }
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const size_t row = (size_t)b * L + i0 + i;
-      m_s[i] = stats[row * (2 * H) + 2 * h];
-      r_s[i] = 1.f / stats[row * (2 * H) + 2 * h + 1];
-      dl_s[i] = delta[row * H + h];
-      if (DROPOUT) rk_s[i] = act3d_dropout_row_key(drop.seed, b, h, i0 + i);
+  }
+
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(L, r_begin + rows_per_split);
+  const float* q_b = q + (size_t)b * L * E + h * d;
+  const float* o_b = dout + (size_t)b * L * E + h * d;
+
+  for (int i0 = r_begin; i0 < r_end; i0 += rt) {
+    const int n = min(rt, r_end - i0);
+    const int n8 = (n + 7) & ~7;
+    __syncthreads();  // the previous row tile (q, dO, ds) is no longer read
+    act3d_stage_pair<DP, SD>(q_b + (size_t)i0 * E, o_b + (size_t)i0 * E, E, n, n8, d, qb, qs,
+                             ob, os);
+    for (int r = threadIdx.x; r < n8; r += blockDim.x) {
+      float mv = 0.f, rv = 0.f, dlv = 0.f;  // rows past L: p = 0, ds = 0
+      uint32_t rk = 0u;
+      if (r < n) {
+        const size_t row = (size_t)b * L + i0 + r;
+        mv = stats[row * (2 * H) + 2 * h];
+        rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
+        dlv = delta[row * H + h];
+        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, b, h, i0 + r);
+      }
+      m_s[r] = mv;
+      r_s[r] = rv;
+      dl_s[r] = dlv;
+      rk_s[r] = rk;
     }
     __syncthreads();
-    if (active) {
-      for (int i = lane; i < n; i += tpk) {
-        const float* qi = q_s + i * ds;
-        const float* doi = do_s + i * ds;
-        const float s = masked ? kMaskedScore : head_dot<DMAX>(qi, kr, d);
-        const float p = expf(s - m_s[i]) * r_s[i];
-        float dp = head_dot<DMAX>(doi, vr, d);
-        float pk = p;
-        if (DROPOUT) {
-          const bool keep = act3d_dropout_keep(rk_s[i], j, drop.threshold);
-          pk = keep ? p * drop.inv_keep : 0.f;
-          dp = keep ? dp * drop.inv_keep : 0.f;
-        }
-        const float dsc = p * (dp - dl_s[i]);
+
+    if (warp_keys) {
+      // this row tile's dk and dv go to fresh accumulators, added to the
+      // running sums in float32 after the tile (the tensor cores do not
+      // round to nearest as they accumulate)
+      float dkt[KD][4], dvt[KD][4];
 #pragma unroll
-        for (int c = 0; c < DMAX; ++c) {
-          if (c < d) {
-            dvr[c] = fmaf(pk, doi[c], dvr[c]);
-            dkr[c] = fmaf(dsc, qi[c], dkr[c]);
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dkt[kk][i] = 0.f;
+          dvt[kk][i] = 0.f;
+        }
+      }
+      for (int rc = 0; rc < (n8 >> 3); ++rc) {
+        // s^T and dp^T for the warp's 16 keys and 8 rows: C fragment
+        // element e is (key g + 8 (e >= 2), row 2t + (e & 1)).
+        float st[4] = {0.f, 0.f, 0.f, 0.f};
+        float dpt[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          if (kk < kdu) {
+            uint32_t ab[4], as[4], bb[2], bs[2];
+            act3d_load_a(kb, ks, SD, warp * 16, kk * 8, g, t, ab, as);
+            act3d_load_bt(qb, qs, SD, rc * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(st, ab, as, bb, bs);
+            act3d_load_a(vb, vs, SD, warp * 16, kk * 8, g, t, ab, as);
+            act3d_load_bt(ob, os, SD, rc * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(dpt, ab, as, bb, bs);
           }
         }
+        float pk[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = warp * 16 + g + (e >= 2 ? 8 : 0);
+          const int il = rc * 8 + 2 * t + (e & 1);
+          const float s = km_s[jl] ? kMaskedScore : st[e];
+          const float p = jl < nk ? expf(s - m_s[il]) * r_s[il] : 0.f;
+          float dp = dpt[e];
+          float pkv = p;
+          if (DROPOUT) {
+            const bool keep = act3d_dropout_keep(rk_s[il], k0 + jl, drop.threshold);
+            pkv = keep ? p * drop.inv_keep : 0.f;
+            dp = keep ? dp * drop.inv_keep : 0.f;
+          }
+          pk[e] = pkv;
+          dsv[e] = p * (dp - dl_s[il]);
+        }
+        uint32_t pab[4], pas[4], dab[4], das[4];
+        act3d_c_as_a(pk, pab, pas);
+        act3d_c_as_a(dsv, dab, das);
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          if (kk < kdu) {
+            uint32_t bb[2], bs[2];
+            act3d_load_b_perm(ob, os, SD, rc * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(dvt[kk], pab, pas, bb, bs);
+            act3d_load_b_perm(qb, qs, SD, rc * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(dkt[kk], dab, das, bb, bs);
+          }
+        }
+        const int ra = (rc * 8 + 2 * t) * DS + warp * 16 + g;
+        act3d_store_split(db, dsm, ra, dsv[0]);
+        act3d_store_split(db, dsm, ra + DS, dsv[1]);
+        act3d_store_split(db, dsm, ra + 8, dsv[2]);
+        act3d_store_split(db, dsm, ra + DS + 8, dsv[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dka[kk][i] += dkt[kk][i];
+          dva[kk][i] += dvt[kk][i];
+        }
+      }
+    }
+    __syncthreads();
+
+    // dq of the row tile: tasks of (16 rows, 8 dims) over the block's keys;
+    // ds in the A operand under the k permutation (float2 reads).
+    const int tasks = ((n + 15) >> 4) * kdu;
+    for (int task = warp; task < tasks; task += kw) {
+      const int rg = task / kdu;
+      const int on = task % kdu;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kk = 0; kk < (nk8 >> 3); ++kk) {
+        const int i_a = (rg * 16 + g) * DS + kk * 8 + 2 * t;
+        const int i_b = i_a + 8 * DS;
+        const float2 xa = *reinterpret_cast<const float2*>(db + i_a);
+        const float2 xb = *reinterpret_cast<const float2*>(db + i_b);
+        const float2 ya = *reinterpret_cast<const float2*>(dsm + i_a);
+        const float2 yb = *reinterpret_cast<const float2*>(dsm + i_b);
+        const uint32_t ab[4] = {__float_as_uint(xa.x), __float_as_uint(xb.x),
+                                __float_as_uint(xa.y), __float_as_uint(xb.y)};
+        const uint32_t as[4] = {__float_as_uint(ya.x), __float_as_uint(yb.x),
+                                __float_as_uint(ya.y), __float_as_uint(yb.y)};
+        uint32_t bb[2], bs[2];
+        act3d_load_b_perm(kb, ks, SD, kk * 8, on * 8, g, t, bb, bs);
+        act3d_mma_3xtf32(acc, ab, as, bb, bs);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rg * 16 + g + 8 * r;
+        if (row >= n) continue;
+        float* dst = dq_out + ((size_t)b * L + i0 + row) * E + h * d;
+        const int c = on * 8 + 2 * t;
+        if (c < d) dst[c] = acc[2 * r];
+        if (c + 1 < d) dst[c + 1] = acc[2 * r + 1];
       }
     }
   }
 
-  // Merge the tpk partial sums of each key (tpk consecutive lanes of one
-  // warp; every lane takes part, inactive keys carry zeros).
-  for (int off = tpk >> 1; off > 0; off >>= 1) {
+  if (warp_keys) {
 #pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      dkr[c] += __shfl_xor_sync(0xffffffffu, dkr[c], off);
-      dvr[c] += __shfl_xor_sync(0xffffffffu, dvr[c], off);
-    }
-  }
-  if (active && lane == 0) {
-    const size_t off = (size_t)split * B * S * E + kv_off;
+    for (int r = 0; r < 2; ++r) {
+      const int jl = warp * 16 + g + 8 * r;
+      if (jl >= nk) continue;
+      const size_t off = ((size_t)b * S + k0 + jl) * E + h * d;
 #pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      if (c < d) {
-        dk[off + c] = dkr[c];
-        dv[off + c] = dvr[c];
+      for (int kk = 0; kk < KD; ++kk) {
+        const int c = kk * 8 + 2 * t;
+        if (c < d) {
+          dk_out[off + c] = dka[kk][2 * r];
+          dv_out[off + c] = dva[kk][2 * r];
+        }
+        if (c + 1 < d) {
+          dk_out[off + c + 1] = dka[kk][2 * r + 1];
+          dv_out[off + c + 1] = dva[kk][2 * r + 1];
+        }
       }
     }
   }
 }
 
-// Sums the nsplit partial slabs of dk and dv, in split order.
-__global__ void mha_bwd_reduce_kernel(const float* __restrict__ dk_parts,
-                                      const float* __restrict__ dv_parts,
-                                      float* __restrict__ dk,
-                                      float* __restrict__ dv, size_t n,
-                                      int nsplit) {
+// out[x] = sum over s of parts[s * n + x], in slab order (and the same for
+// a second array when out2 is given).  The slabs are read in batches of
+// kBatch loads in flight, then added in order.
+__global__ void sum_slabs_kernel(const float* __restrict__ parts, float* __restrict__ out,
+                                 const float* __restrict__ parts2,
+                                 float* __restrict__ out2, size_t n, int nslab) {
+  constexpr int kBatch = 8;
   for (size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x; x < n;
        x += (size_t)gridDim.x * blockDim.x) {
     float a = 0.f, c = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      a += dk_parts[s * n + x];
-      c += dv_parts[s * n + x];
-    }
-    dk[x] = a;
-    dv[x] = c;
-  }
-}
-
-// Pass (b): dq.  grid (query tiles, H, B), tpr threads per row.
-template <int DMAX, bool DROPOUT>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ stats,
-                  const float* __restrict__ delta,
-                  const uint8_t* __restrict__ mask, float* __restrict__ dq,
-                  int L, int S, int H, int d, int tpr, Dropout drop) {
-  extern __shared__ float smem[];
-  const int ds = d | 1;
-  float* k_s = smem;                   // [kKeyTile][ds]
-  float* v_s = k_s + kKeyTile * ds;    // [kKeyTile][ds]
-  uint8_t* m_s = reinterpret_cast<uint8_t*>(v_s + kKeyTile * ds);  // [kKeyTile]
-
-  const int E = H * d;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int rows_per_block = kThreads / tpr;
-  const int group = threadIdx.x / tpr;
-  const int lane = threadIdx.x % tpr;
-  const int row = blockIdx.x * rows_per_block + group;
-  const bool active = row < L;
-
-  float qr[DMAX], dor[DMAX], acc[DMAX];
-  const size_t row_off = ((size_t)b * L + (active ? row : 0)) * E + h * d;
+    for (int s0 = 0; s0 < nslab; s0 += kBatch) {
+      float pa[kBatch], pc[kBatch];
 #pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    qr[c] = (active && c < d) ? q[row_off + c] : 0.f;
-    dor[c] = (active && c < d) ? dout[row_off + c] : 0.f;
-    acc[c] = 0.f;
-  }
-  const size_t st = (size_t)b * L + (active ? row : 0);
-  const float m = stats[st * (2 * H) + 2 * h];
-  const float r = 1.f / stats[st * (2 * H) + 2 * h + 1];
-  const float dl = delta[st * H + h];
-  const uint32_t row_key =
-      DROPOUT ? act3d_dropout_row_key(drop.seed, b, h, active ? row : 0) : 0u;
-
-  const float* k_b = k + (size_t)b * S * E + h * d;
-  const float* v_b = v + (size_t)b * S * E + h * d;
-  const uint8_t* mask_b = mask ? mask + (size_t)b * S : nullptr;
-
-  for (int s0 = 0; s0 < S; s0 += kKeyTile) {
-    const int n = min(kKeyTile, S - s0);
-    __syncthreads();
-    for (int x = threadIdx.x; x < n * d; x += kThreads) {
-      const int j = x / d;
-      const int c = x - j * d;
-      const size_t g = (size_t)(s0 + j) * E + c;
-      k_s[j * ds + c] = k_b[g];
-      v_s[j * ds + c] = v_b[g];
-    }
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      m_s[j] = mask_b ? mask_b[s0 + j] : 0;
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = lane; j < n; j += tpr) {
-        const float* kj = k_s + j * ds;
-        const float s = m_s[j] ? kMaskedScore : head_dot<DMAX>(qr, kj, d);
-        const float p = expf(s - m) * r;
-        float dp = head_dot<DMAX>(dor, v_s + j * ds, d);
-        if (DROPOUT) {
-          dp = act3d_dropout_keep(row_key, s0 + j, drop.threshold)
-                   ? dp * drop.inv_keep : 0.f;
-        }
-        const float dsc = p * (dp - dl);
+      for (int u = 0; u < kBatch; ++u) {
+        const bool live = s0 + u < nslab;
+        pa[u] = live ? parts[(s0 + u) * n + x] : 0.f;
+        pc[u] = live && out2 ? parts2[(s0 + u) * n + x] : 0.f;
+      }
 #pragma unroll
-        for (int c = 0; c < DMAX; ++c) {
-          if (c < d) acc[c] = fmaf(dsc, kj[c], acc[c]);
+      for (int u = 0; u < kBatch; ++u) {
+        if (s0 + u < nslab) {
+          a += pa[u];
+          c += pc[u];
         }
       }
     }
-  }
-
-  for (int off = tpr >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-  }
-  if (active && lane == 0) {
-#pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      if (c < d) dq[row_off + c] = acc[c];
-    }
+    out[x] = a;
+    if (out2) out2[x] = c;
   }
 }
 
-template <int DMAX, bool DROPOUT>
-void launch(const float* q, const float* k, const float* v, const float* dout,
-            const float* stats, const float* delta, const uint8_t* mask,
-            float* dq, float* dk, float* dv, float* work, int B, int L, int S,
-            int H, int d, int tpr, int tpk, int nsplit, Dropout drop,
-            cudaStream_t stream) {
-  const int ds = d | 1;
-  const int keys_per_block = kThreads / tpk;
-  const int key_tiles = (S + keys_per_block - 1) / keys_per_block;
-  const int rows_per_split = (L + nsplit - 1) / nsplit;
-  const size_t n = (size_t)B * S * H * d;
-  float* dk_dst = nsplit > 1 ? work : dk;
-  float* dv_dst = nsplit > 1 ? work + nsplit * n : dv;
-  const size_t smem_a = (2 * kRowTile * ds + 4 * kRowTile) * sizeof(float);
-  mha_bwd_dkdv_kernel<DMAX, DROPOUT>
-      <<<dim3(key_tiles * nsplit, H, B), kThreads, smem_a, stream>>>(
-          q, k, v, dout, stats, delta, mask, dk_dst, dv_dst, B, L, S, H, d,
-          tpk, key_tiles, rows_per_split, drop);
-  if (nsplit > 1) {
-    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-    mha_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(work, work + nsplit * n,
-                                                      dk, dv, n, nsplit);
-  }
-  const int rows_per_block = kThreads / tpr;
-  const size_t smem_b = 2 * kKeyTile * ds * sizeof(float) + kKeyTile;
-  mha_bwd_dq_kernel<DMAX, DROPOUT>
-      <<<dim3((L + rows_per_block - 1) / rows_per_block, H, B), kThreads,
-          smem_b, stream>>>(q, k, v, dout, stats, delta, mask, dq, L, S, H, d,
-                            tpr, drop);
+void sum_slabs(const float* parts, float* out, const float* parts2, float* out2,
+               size_t n, int nslab, cudaStream_t stream) {
+  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
+  sum_slabs_kernel<<<blocks, 256, 0, stream>>>(parts, out, parts2, out2, n, nslab);
 }
 
-template <int DMAX>
-void launch_d(bool dropout, const float* q, const float* k, const float* v,
-              const float* dout, const float* stats, const float* delta,
-              const uint8_t* mask, float* dq, float* dk, float* dv,
-              float* work, int B, int L, int S, int H, int d, int tpr,
-              int tpk, int nsplit, Dropout drop, cudaStream_t stream) {
+template <int DP, bool DROPOUT>
+cudaError_t launch_dp(const float* q, const float* k, const float* v, const float* dout,
+                      const float* stats, const float* delta, const uint8_t* mask,
+                      float* dq, float* dk, float* dv, float* work, int B, int L, int S,
+                      int H, int d, int key_warps, int rows_per_split, int nsplit,
+                      Dropout drop, cudaStream_t stream) {
+  const int key_tiles = (S + 16 * key_warps - 1) / (16 * key_warps);
+  const int rt = row_tile(rows_per_split);
+  const size_t smem = smem_bytes(DP, key_warps, rt);
+  auto kernel = mha_bwd_kernel<DP, DROPOUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t ble = (size_t)B * L * H * d;
+  const size_t bse = (size_t)B * S * H * d;
+  float* dq_parts = key_tiles > 1 ? work : nullptr;
+  float* dkv_parts = nsplit > 1 ? work + (key_tiles > 1 ? key_tiles * ble : 0) : nullptr;
+  kernel<<<dim3(key_tiles * nsplit, H, B), 32 * key_warps, smem, stream>>>(
+      q, k, v, dout, stats, delta, mask, dq, dk, dv, dq_parts, dkv_parts, B, L, S, H, d,
+      key_tiles, nsplit, rows_per_split, rt, drop);
+  if (dq_parts) sum_slabs(dq_parts, dq, nullptr, nullptr, ble, key_tiles, stream);
+  if (dkv_parts) {
+    sum_slabs(dkv_parts, dk, dkv_parts + nsplit * bse, dv, bse, nsplit, stream);
+  }
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
+                   const float* dout, const float* stats, const float* delta,
+                   const uint8_t* mask, float* dq, float* dk, float* dv, float* work,
+                   int B, int L, int S, int H, int d, int key_warps, int rows_per_split,
+                   int nsplit, Dropout drop, cudaStream_t stream) {
   if (dropout) {
-    launch<DMAX, true>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B,
-                       L, S, H, d, tpr, tpk, nsplit, drop, stream);
-  } else {
-    launch<DMAX, false>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work,
-                        B, L, S, H, d, tpr, tpk, nsplit, drop, stream);
+    return launch_dp<DP, true>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B, L,
+                               S, H, d, key_warps, rows_per_split, nsplit, drop, stream);
   }
+  return launch_dp<DP, false>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B, L,
+                              S, H, d, key_warps, rows_per_split, nsplit, drop, stream);
 }
-
-bool pow2_upto_32(int x) { return x >= 1 && x <= 32 && (x & (x - 1)) == 0; }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers of
-// contiguous float32 tensors (mask: bytes, may be null).  `work` holds
-// 2 * nsplit * B*S*E floats when nsplit > 1 (may be null otherwise).
-// dropout != 0 selects the dropout instantiations, with the keep threshold
-// and 1/(1-rate) computed on the host.  Returns cudaGetLastError() after
-// the launches (0 = success).
+// contiguous float32 tensors (mask: bytes, may be null).  The launch plan
+// comes from the wrapper (kernels/attention.py::bwd_plan): `key_warps`
+// (1, 2, 4 or 8) warps of 16 keys per block, so key_tiles =
+// ceil(S / (16 * key_warps)); L cut into nsplit = ceil(L / rows_per_split)
+// splits.  `work` holds, in this order, key_tiles * B*L*E floats of dq
+// slabs when key_tiles > 1 and 2 * nsplit * B*S*E floats of dk, dv slabs
+// when nsplit > 1 (may be null when neither).  dropout != 0 selects the
+// dropout instantiations, with the keep threshold and 1/(1-rate) computed
+// on the host.  Returns cudaGetLastError() after the launches (0 =
+// success).
 extern "C" int act3d_fused_mha_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* stats, const void* delta, const void* mask, void* dq,
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
-    int tpr, int tpk, int nsplit, int dropout, unsigned int seed,
+    int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
     unsigned int threshold, float inv_keep, void* stream) {
+  const bool warps_ok =
+      key_warps == 1 || key_warps == 2 || key_warps == 4 || key_warps == 8;
   if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
-      d > 64 || !pow2_upto_32(tpr) || !pow2_upto_32(tpk) || nsplit < 1 ||
-      (nsplit > 1 && work == nullptr)) {
+      d > 64 || !warps_ok || rows_per_split < 1 || nsplit < 1 ||
+      (long long)(nsplit - 1) * rows_per_split >= L ||
+      (long long)nsplit * rows_per_split < L) {
     return (int)cudaErrorInvalidValue;
+  }
+  const int dp = d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : 64;
+  const int key_tiles = (S + 16 * key_warps - 1) / (16 * key_warps);
+  if ((key_tiles > 1 || nsplit > 1) && work == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
+    return (int)cudaErrorInvalidConfiguration;
   }
   const Dropout drop{seed, threshold, inv_keep};
   const float* qf = static_cast<const float*>(q);
@@ -374,15 +449,24 @@ extern "C" int act3d_fused_mha_bwd_f32(
   float* dvf = static_cast<float*>(dv);
   float* wf = static_cast<float*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 16) {
-    launch_d<16>(dropout != 0, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf,
-                 B, L, S, H, d, tpr, tpk, nsplit, drop, st);
-  } else if (d <= 32) {
-    launch_d<32>(dropout != 0, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf,
-                 B, L, S, H, d, tpr, tpk, nsplit, drop, st);
-  } else {
-    launch_d<64>(dropout != 0, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf,
-                 B, L, S, H, d, tpr, tpk, nsplit, drop, st);
+  const bool dr = dropout != 0;
+  cudaError_t err;
+  switch (dp) {
+    case 8:
+      err = launch<8>(dr, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf, B, L, S, H, d,
+                      key_warps, rows_per_split, nsplit, drop, st);
+      break;
+    case 16:
+      err = launch<16>(dr, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf, B, L, S, H, d,
+                       key_warps, rows_per_split, nsplit, drop, st);
+      break;
+    case 32:
+      err = launch<32>(dr, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf, B, L, S, H, d,
+                       key_warps, rows_per_split, nsplit, drop, st);
+      break;
+    default:
+      err = launch<64>(dr, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf, B, L, S, H, d,
+                       key_warps, rows_per_split, nsplit, drop, st);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -15,35 +15,39 @@
 //   row is scaled by 1 / ((1 - rate) l) at the end.  The keep mask comes
 //   from dropout_hash.cuh, keyed on absolute (seed, b, h, row, col).
 //
-// What bounds it on the H100 at the serving shapes: 4*L*S*E FLOPs per
-// call (q k^T and p v, two FLOPs per multiply-add) against 67 TFLOP/s of
-// float32 outside the tensor cores, e.g. 2.5 GFLOP = 37 us for the
-// ghost-point site L=3333, S=3126, E=60; plus L*S*H exponentials on the
-// special-function units (42 M at that site).  The bytes are small (q, k,
-// v are a few MB), so the kernel is bound by operations, not memory.
-// Dropout adds one hash per score: 11 integer instructions (two of them
-// 32-bit multiplies, dropout_hash.cuh) beside the score's 2d FMAs and one
-// exponential, i.e. L*S*H hashes, as many as there are exponentials
-// (e.g. 20.9 M at the training site L=3072, S=53, H=8, B=16).  The
-// no-dropout instantiation compiles the hash out (template flag).
+// What bounds it on the H100: 4*L*S*E FLOPs per call (q k^T and p v) and
+// L*S*H exponentials.  On the tensor cores at float32 accuracy (3xTF32,
+// three TF32 products per product: 495 / 3 = 165 TFLOP/s) the ghost-point
+// site L=3333, S=3126, E=60 is 15 us of products and 42 M exponentials
+// (132 SMs x 16 per clock: ~10 us at 1.98 GHz); q, k, v are a few MB.
+// The serving sites with L <= 50 are a few MFLOP: there the bound is the
+// launch and the card's width.
 //
-// Design (simple and correct first; wgmma, TMA and padding d to 16 for
-// the tensor cores are later work):
-//   * one block per (query tile, head, batch); 128 threads.
-//   * each query row is owned by a group of `tpr` threads of one warp
-//     (tpr a power of two <= 32, chosen by the wrapper so that small-L
-//     calls still fill the card); a thread visits every tpr-th key.
-//   * K/V of the head are streamed through shared memory in tiles of 64
-//     keys; the row stride is odd so the tpr lanes of a group read
-//     distinct banks, and every other group reads the same words
-//     (broadcast).  Loads are scalar: 15-float head slices are not
-//     16-byte aligned.
-//   * online softmax in registers (running max, running sum, d-wide
-//     accumulator), then the tpr partial states of a row are merged with
-//     warp shuffles; the 1/l scale is applied to the (1, d) output row.
-//   * ragged L and S edges are masked in the kernel: rows >= L compute
-//     nothing and write nothing, keys >= S are never visited.
-//   * head dims up to 64 (templated register arrays of 16, 32 or 64).
+// Design:
+//   * products on the tensor cores: mma.sync m16n8k8 TF32 in the 3xTF32
+//     split of mma_tf32.cuh; d is padded with zeros to DP = 8, 16, 32 or
+//     64 in shared memory (the global tensors stay unpadded).
+//   * one block per (query tile, head, batch, key chunk); `warps` warps of
+//     16 query rows each (the wrapper's plan: fewer warps for short L).
+//     Each warp keeps its q fragments (split once) and its output
+//     accumulator in registers, the score tile (16 x 32) too; p goes from
+//     the score fragment to the p v operand without shuffles (k permuted).
+//   * K/V of the head stream through shared memory in tiles of 32 keys,
+//     split into (big, small) once per block when staged, so no warp
+//     converts them again.  Neighbouring threads read neighbouring floats
+//     of a head slice, several loads in flight per thread; a block has at
+//     least 4 warps, so at L = 1 three warps stage keys for the one that
+//     owns the row.
+//   * online softmax per row (running max, running sum); the four lanes of
+//     a quad that share a row reduce with shuffles.
+//   * split over S (flash-decoding): when query tiles x H x B cannot fill
+//     the card (L = 1 and the L = 50 sampler sites), the keys are cut into
+//     `nsplit` chunks of `chunk` keys, each block writes its partial
+//     (m, l, unnormalised acc) to a workspace, and a second kernel launched
+//     from the same C call combines the chunks in chunk order (no atomics,
+//     the same result on every run).
+//   * ragged edges masked in the kernel: rows >= L compute on zeros and
+//     write nothing, keys past the chunk score -inf (weight 0).
 //   * exp is the accurate expf: the port holds the kernel to atol 2e-5
 //     against the plain version.
 
@@ -52,178 +56,407 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kKeyTile = 64;
+// keys staged per step; scripts/ab_fused_mha_plans.py builds 16 and 64
+#ifndef ACT3D_FWD_KEY_TILE
+#define ACT3D_FWD_KEY_TILE 32
+#endif
+constexpr int kKeyTile = ACT3D_FWD_KEY_TILE;
+static_assert(kKeyTile <= 128, "one mask byte per thread of a 128-thread block");
+constexpr int kMaxWarps = 8;
+// a block has at least this many warps: those without query rows (short
+// L) still stage K/V, so one warp never loads a tile alone
+constexpr int kMinWarps = 4;
 constexpr float kMaskedScore = -1e30f;
 
-template <int DMAX, bool DROPOUT>
-__global__ void __launch_bounds__(kThreads)
-fused_mha_fwd_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const uint8_t* __restrict__ mask,
-                     float* __restrict__ out,
-                     float* __restrict__ stats,
-                     int L, int S, int H, int d, int tpr,
-                     uint32_t seed, uint32_t threshold, float inv_keep) {
+struct Dropout {
+  uint32_t seed;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// grid (q_tiles * nsplit, H, B), blockIdx.x = split * q_tiles + tile;
+// blockDim 32 * max(row_warps, kMinWarps); warps [0, row_warps) own 16
+// query rows each.  part_acc == nullptr: one chunk, write out/stats;
+// else write the chunk's partial acc (nsplit, B, L, E) and (m, l)
+// (nsplit, B, L, H, 2).
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const uint8_t* __restrict__ mask,
+               float* __restrict__ out, float* __restrict__ stats,
+               float* __restrict__ part_acc, float* __restrict__ part_ml, int B,
+               int L, int S, int H, int d, int row_warps, int q_tiles, int chunk,
+               Dropout drop) {
+  constexpr int SD = DP + 4;  // shared row stride: conflict-free fragments
+  constexpr int KD = DP / 8;  // k-steps of q k^T, n-tiles of p v
   extern __shared__ float smem[];
-  const int ds = d | 1;  // odd row stride
-  float* k_s = smem;                   // [kKeyTile][ds]
-  float* v_s = k_s + kKeyTile * ds;    // [kKeyTile][ds]
-  uint8_t* m_s = reinterpret_cast<uint8_t*>(v_s + kKeyTile * ds);  // [kKeyTile]
+  float* kb = smem;
+  float* ks = kb + kKeyTile * SD;
+  float* vb = ks + kKeyTile * SD;
+  float* vs = vb + kKeyTile * SD;
+  uint8_t* m_s = reinterpret_cast<uint8_t*>(vs + kKeyTile * SD);
 
   const int E = H * d;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int rows_per_block = kThreads / tpr;
-  const int group = threadIdx.x / tpr;
-  const int lane = threadIdx.x % tpr;
-  const int row = blockIdx.x * rows_per_block + group;
-  const bool active = row < L;
+  const int tile = blockIdx.x % q_tiles;
+  const int split = blockIdx.x / q_tiles;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const bool has_rows = warp < row_warps;
+  const int row_a = (tile * row_warps + warp) * 16 + g;
+  const int row_b = row_a + 8;
+  const int kdu = (d + 7) >> 3;  // k-steps / n-tiles that hold real dims
 
-  float qr[DMAX];
-  float acc[DMAX];
-  const float* q_row = q + ((size_t)b * L + (active ? row : 0)) * E + h * d;
+  // q fragments: loaded here, split after the first K/V tile is staged, so
+  // their load latency overlaps the staging's
+  uint32_t qb[KD][4], qs[KD][4];
+  const float* q_b = q + (size_t)b * L * E + h * d;
 #pragma unroll
-  for (int c = 0; c < DMAX; ++c) {
-    qr[c] = (active && c < d) ? q_row[c] : 0.f;
-    acc[c] = 0.f;
+  for (int kk = 0; kk < KD; ++kk) {
+    const int c0 = kk * 8 + t;
+    const int c1 = c0 + 4;
+    qb[kk][0] = (row_a < L && c0 < d) ? __float_as_uint(q_b[(size_t)row_a * E + c0]) : 0u;
+    qb[kk][1] = (row_b < L && c0 < d) ? __float_as_uint(q_b[(size_t)row_b * E + c0]) : 0u;
+    qb[kk][2] = (row_a < L && c1 < d) ? __float_as_uint(q_b[(size_t)row_a * E + c1]) : 0u;
+    qb[kk][3] = (row_b < L && c1 < d) ? __float_as_uint(q_b[(size_t)row_b * E + c1]) : 0u;
   }
-  float m = -INFINITY;
-  float l = 0.f;
-  const uint32_t row_key =
-      DROPOUT ? act3d_dropout_row_key(seed, b, h, active ? row : 0) : 0u;
+
+  float o[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[kk][i] = 0.f;
+  }
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  uint32_t rk_a = 0u, rk_b = 0u;
+  if (DROPOUT) {
+    rk_a = act3d_dropout_row_key(drop.seed, b, h, row_a);
+    rk_b = act3d_dropout_row_key(drop.seed, b, h, row_b);
+  }
 
   const float* k_b = k + (size_t)b * S * E + h * d;
   const float* v_b = v + (size_t)b * S * E + h * d;
   const uint8_t* mask_b = mask ? mask + (size_t)b * S : nullptr;
+  const int c_begin = split * chunk;
+  const int c_end = min(S, c_begin + chunk);
 
-  for (int s0 = 0; s0 < S; s0 += kKeyTile) {
-    const int n = min(kKeyTile, S - s0);
+  for (int s0 = c_begin; s0 < c_end; s0 += kKeyTile) {
+    const int n = min(kKeyTile, c_end - s0);
+    const int n8 = (n + 7) & ~7;
     __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < n * d; i += kThreads) {
-      const int j = i / d;
-      const int c = i - j * d;
-      const size_t g = (size_t)(s0 + j) * E + c;
-      k_s[j * ds + c] = k_b[g];
-      v_s[j * ds + c] = v_b[g];
-    }
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      m_s[j] = mask_b ? mask_b[s0 + j] : 0;
-    }
+    // the mask bytes are loaded before the K/V stores wait on their loads
+    const int j_m = threadIdx.x;  // blockDim >= 128 >= kKeyTile
+    const uint8_t masked = (j_m < n && mask_b) ? mask_b[s0 + j_m] : 0;
+    act3d_stage_pair<DP, SD>(k_b + (size_t)s0 * E, v_b + (size_t)s0 * E, E, n, n8, d, kb,
+                             ks, vb, vs);
+    if (j_m < n8) m_s[j_m] = masked;
     __syncthreads();
-    if (active) {
-      for (int j = lane; j < n; j += tpr) {
-        const float* kj = k_s + j * ds;
-        float s = 0.f;
+    if (!has_rows) continue;
+    if (s0 == c_begin) {
 #pragma unroll
-        for (int c = 0; c < DMAX; ++c) {
-          if (c < d) s = fmaf(qr[c], kj[c], s);
-        }
-        if (m_s[j]) s = kMaskedScore;
-        if (s > m) {
-          const float scale = expf(m - s);  // 0 while m is still -inf
-          l *= scale;
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-          for (int c = 0; c < DMAX; ++c) acc[c] *= scale;
-          m = s;
-        }
-        float p = expf(s - m);
-        l += p;  // l is the sum before dropout
-        if (DROPOUT && !act3d_dropout_keep(row_key, s0 + j, threshold)) p = 0.f;
-        const float* vj = v_s + j * ds;
-#pragma unroll
-        for (int c = 0; c < DMAX; ++c) {
-          if (c < d) acc[c] = fmaf(p, vj[c], acc[c]);
+        for (int i = 0; i < 4; ++i) {
+          const Tf32Pair p = act3d_split_tf32(__uint_as_float(qb[kk][i]));
+          qb[kk][i] = p.big;
+          qs[kk][i] = p.small;
         }
       }
     }
-  }
 
-  // Merge the tpr partial states of each row.  A group is tpr consecutive
-  // lanes of one warp, so xor offsets below tpr stay inside it; every lane
-  // of the warp takes part (full mask), inactive rows carry (-inf, 0, 0).
-  for (int off = tpr >> 1; off > 0; off >>= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-    const float mn = fmaxf(m, mo);
-    const float sa = (m == -INFINITY) ? 0.f : expf(m - mn);
-    const float sb = (mo == -INFINITY) ? 0.f : expf(mo - mn);
-    l = l * sa + lo * sb;
+    const int ntn = n8 >> 3;  // n-tiles of 8 keys in this tile
+    float s[kKeyTile / 8][4];
+    float t_a = -INFINITY, t_b = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      const float ao = __shfl_xor_sync(0xffffffffu, acc[c], off);
-      acc[c] = acc[c] * sa + ao * sb;
+    for (int nt = 0; nt < kKeyTile / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      if (nt < ntn) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          if (kk < kdu) {
+            uint32_t bb[2], bs[2];
+            act3d_load_bt(kb, ks, SD, nt * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(s[nt], qb[kk], qs[kk], bb, bs);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = nt * 8 + 2 * t + (i & 1);
+          float x = s[nt][i];
+          if (j >= n) x = -INFINITY;
+          else if (m_s[j]) x = kMaskedScore;
+          s[nt][i] = x;
+          if (i < 2) t_a = fmaxf(t_a, x);
+          else t_b = fmaxf(t_b, x);
+        }
+      }
     }
-    m = mn;
+    // every tile holds a key of the chunk, so the new max is finite
+    const float n_a = fmaxf(m_a, quad_max(t_a));
+    const float n_b = fmaxf(m_b, quad_max(t_b));
+    const float sc_a = expf(m_a - n_a);  // 0 while m is still -inf
+    const float sc_b = expf(m_b - n_b);
+    m_a = n_a;
+    m_b = n_b;
+    l_a *= sc_a;
+    l_b *= sc_b;
+    // the tile's p v goes to a fresh accumulator that is added to the
+    // running one in float32: the tensor cores do not round to nearest as
+    // they accumulate, so no sum longer than a tile stays in them
+    float ot[KD][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ot[kk][i] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kKeyTile / 8; ++nt) {
+      if (nt < ntn) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = expf(s[nt][i] - (i < 2 ? m_a : m_b));
+          if (i < 2) l_a += p;  // l is the sum before dropout
+          else l_b += p;
+          if (DROPOUT && !act3d_dropout_keep(i < 2 ? rk_a : rk_b,
+                                             s0 + nt * 8 + 2 * t + (i & 1),
+                                             drop.threshold)) {
+            p = 0.f;
+          }
+          s[nt][i] = p;
+        }
+        uint32_t ab[4], as[4];
+        act3d_c_as_a(s[nt], ab, as);
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          if (kk < kdu) {
+            uint32_t bb[2], bs[2];
+            act3d_load_b_perm(vb, vs, SD, nt * 8, kk * 8, g, t, bb, bs);
+            act3d_mma_3xtf32(ot[kk], ab, as, bb, bs);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      o[kk][0] = fmaf(o[kk][0], sc_a, ot[kk][0]);
+      o[kk][1] = fmaf(o[kk][1], sc_a, ot[kk][1]);
+      o[kk][2] = fmaf(o[kk][2], sc_b, ot[kk][2]);
+      o[kk][3] = fmaf(o[kk][3], sc_b, ot[kk][3]);
+    }
   }
+  if (!has_rows) return;
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
 
-  if (active && lane == 0) {
-    const float inv = DROPOUT ? inv_keep / l : 1.f / l;
-    float* o_row = out + ((size_t)b * L + row) * E + h * d;
+  const int rows[2] = {row_a, row_b};
+  const float ms[2] = {m_a, m_b};
+  const float ls[2] = {l_a, l_b};
 #pragma unroll
-    for (int c = 0; c < DMAX; ++c) {
-      if (c < d) o_row[c] = acc[c] * inv;
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    if (row >= L) continue;
+    const size_t bl = (size_t)b * L + row;
+    float* dst;
+    float scale;
+    if (part_acc == nullptr) {
+      dst = out + bl * E + h * d;
+      scale = (DROPOUT ? drop.inv_keep : 1.f) / ls[r];
+      if (t == 0) {
+        stats[bl * (2 * H) + 2 * h] = ms[r];
+        stats[bl * (2 * H) + 2 * h + 1] = ls[r];
+      }
+    } else {
+      const size_t sbl = (size_t)split * B * L + bl;
+      dst = part_acc + sbl * E + h * d;
+      scale = 1.f;
+      if (t == 0) {
+        part_ml[(sbl * H + h) * 2] = ms[r];
+        part_ml[(sbl * H + h) * 2 + 1] = ls[r];
+      }
     }
-    float* st = stats + ((size_t)b * L + row) * (2 * H) + 2 * h;
-    st[0] = m;
-    st[1] = l;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = kk * 8 + 2 * t;
+      if (c < d) dst[c] = o[kk][2 * r] * scale;
+      if (c + 1 < d) dst[c + 1] = o[kk][2 * r + 1] * scale;
+    }
   }
 }
 
-template <int DMAX>
-void launch(const float* q, const float* k, const float* v,
-            const uint8_t* mask, float* out, float* stats, int B, int L,
-            int S, int H, int d, int tpr, int dropout, uint32_t seed,
-            uint32_t threshold, float inv_keep, cudaStream_t stream) {
-  const int rows_per_block = kThreads / tpr;
-  const dim3 grid((L + rows_per_block - 1) / rows_per_block, H, B);
-  const size_t smem = 2 * kKeyTile * (d | 1) * sizeof(float) + kKeyTile;
-  if (dropout) {
-    fused_mha_fwd_kernel<DMAX, true><<<grid, kThreads, smem, stream>>>(
-        q, k, v, mask, out, stats, L, S, H, d, tpr, seed, threshold, inv_keep);
-  } else {
-    fused_mha_fwd_kernel<DMAX, false><<<grid, kThreads, smem, stream>>>(
-        q, k, v, mask, out, stats, L, S, H, d, tpr, 0u, 0u, 1.f);
+// Combines the nsplit chunks of every (row, head) in chunk order: one warp
+// per (row, head), lane s reading chunk s (and s + 32, ...), so every
+// chunk's loads are in flight at once; the chunks' weights and sums are
+// reduced with a fixed butterfly, which leaves every lane the same bits.
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int DP>
+__global__ void mha_fwd_combine_kernel(const float* __restrict__ part_acc,
+                                       const float* __restrict__ part_ml,
+                                       float* __restrict__ out,
+                                       float* __restrict__ stats, int B, int L, int H,
+                                       int d, int nsplit, float inv_keep) {
+  const int E = H * d;
+  const size_t bl_n = (size_t)B * L;
+  const int lane = threadIdx.x & 31;
+  const size_t items = bl_n * H;
+  const size_t warps = ((size_t)gridDim.x * blockDim.x) >> 5;
+  for (size_t w = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < items;
+       w += warps) {
+    const size_t bl = w / H;
+    const int h = (int)(w - bl * H);
+    float m = -INFINITY;
+    for (int s = lane; s < nsplit; s += 32) {
+      m = fmaxf(m, part_ml[((s * bl_n + bl) * H + h) * 2]);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const size_t ml = ((s * bl_n + bl) * H + h) * 2;
+      const float wt = expf(part_ml[ml] - m);
+      l += part_ml[ml + 1] * wt;
+      const float* a = part_acc + (s * bl_n + bl) * E + h * d;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        if (c < d) acc[c] += a[c] * wt;
+      }
+    }
+    l = warp_sum(l);
+    const float scale = inv_keep / l;
+    float* o = out + bl * E + h * d;
+#pragma unroll
+    for (int c = 0; c < DP; ++c) {
+      if (c < d) {
+        const float x = warp_sum(acc[c]);
+        if ((c & 31) == lane) o[c] = x * scale;
+      }
+    }
+    if (lane == 0) {
+      stats[bl * (2 * H) + 2 * h] = m;
+      stats[bl * (2 * H) + 2 * h + 1] = l;
+    }
   }
+}
+
+template <int DP, bool DROPOUT>
+cudaError_t launch_dp(const float* q, const float* k, const float* v,
+                      const uint8_t* mask, float* out, float* stats, float* work,
+                      int B, int L, int S, int H, int d, int warps, int chunk,
+                      int nsplit, Dropout drop, cudaStream_t stream) {
+  const int q_tiles = (L + 16 * warps - 1) / (16 * warps);
+  const int threads = 32 * (warps > kMinWarps ? warps : kMinWarps);
+  const size_t smem = 4 * kKeyTile * (DP + 4) * sizeof(float) + kKeyTile;
+  auto kernel = mha_fwd_kernel<DP, DROPOUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  float* part_acc = nsplit > 1 ? work : nullptr;
+  float* part_ml = nsplit > 1 ? work + (size_t)nsplit * B * L * H * d : nullptr;
+  kernel<<<dim3(q_tiles * nsplit, H, B), threads, smem, stream>>>(
+      q, k, v, mask, out, stats, part_acc, part_ml, B, L, S, H, d, warps, q_tiles, chunk,
+      drop);
+  if (nsplit > 1) {
+    const size_t items = (size_t)B * L * H;  // one warp each
+    const int blocks = (int)((items + 7) / 8 < 8192 ? (items + 7) / 8 : 8192);
+    mha_fwd_combine_kernel<DP><<<blocks, 256, 0, stream>>>(
+        part_acc, part_ml, out, stats, B, L, H, d, nsplit,
+        DROPOUT ? drop.inv_keep : 1.f);
+  }
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
+                   const uint8_t* mask, float* out, float* stats, float* work, int B,
+                   int L, int S, int H, int d, int warps, int chunk, int nsplit,
+                   Dropout drop, cudaStream_t stream) {
+  if (dropout) {
+    return launch_dp<DP, true>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
+                               chunk, nsplit, drop, stream);
+  }
+  return launch_dp<DP, false>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
+                              chunk, nsplit, drop, stream);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers of
-// contiguous tensors; mask may be null.  dropout != 0 selects the dropout
-// instantiation with the keep threshold and 1/(1-rate) computed on the
-// host.  Returns cudaGetLastError() after the launch (0 = success).
+// contiguous tensors; mask may be null.  The launch plan comes from the
+// wrapper (kernels/attention.py::fwd_plan): `warps` (1, 2, 4 or 8) warps
+// of 16 query rows per block; the keys cut into `nsplit` chunks of `chunk`
+// keys (nsplit = ceil(S / chunk), no chunk empty).  With nsplit > 1,
+// `work` holds nsplit * B * L * (E + 2H) floats: the partial accumulators,
+// then the partial (m, l).  dropout != 0 selects the dropout instantiation
+// with the keep threshold and 1/(1-rate) computed on the host.  Returns
+// cudaGetLastError() after the launches (0 = success).
 extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* mask,
-                                       void* out, void* stats, int B, int L,
-                                       int S, int H, int d, int tpr,
-                                       int dropout, unsigned int seed,
-                                       unsigned int threshold, float inv_keep,
-                                       void* stream) {
+                                       void* out, void* stats, void* work, int B,
+                                       int L, int S, int H, int d, int warps,
+                                       int chunk, int nsplit, int dropout,
+                                       unsigned int seed, unsigned int threshold,
+                                       float inv_keep, void* stream) {
+  const bool warps_ok = warps == 1 || warps == 2 || warps == 4 || warps == 8;
   if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
-      d > 64 || tpr < 1 || tpr > 32 || (tpr & (tpr - 1)) != 0) {
+      d > 64 || !warps_ok || chunk < 1 || nsplit < 1 ||
+      (long long)(nsplit - 1) * chunk >= S || (long long)nsplit * chunk < S ||
+      (nsplit > 1 && work == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const Dropout drop{seed, threshold, inv_keep};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const uint8_t* mf = static_cast<const uint8_t*>(mask);
   float* of = static_cast<float*>(out);
   float* sf = static_cast<float*>(stats);
+  float* wf = static_cast<float*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 16) {
-    launch<16>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
-               inv_keep, st);
+  const bool dr = dropout != 0;
+  cudaError_t err;
+  if (d <= 8) {
+    err = launch<8>(dr, qf, kf, vf, mf, of, sf, wf, B, L, S, H, d, warps, chunk, nsplit,
+                    drop, st);
+  } else if (d <= 16) {
+    err = launch<16>(dr, qf, kf, vf, mf, of, sf, wf, B, L, S, H, d, warps, chunk, nsplit,
+                     drop, st);
   } else if (d <= 32) {
-    launch<32>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
-               inv_keep, st);
+    err = launch<32>(dr, qf, kf, vf, mf, of, sf, wf, B, L, S, H, d, warps, chunk, nsplit,
+                     drop, st);
   } else {
-    launch<64>(qf, kf, vf, mf, of, sf, B, L, S, H, d, tpr, dropout, seed, threshold,
-               inv_keep, st);
+    err = launch<64>(dr, qf, kf, vf, mf, of, sf, wf, B, L, S, H, d, warps, chunk, nsplit,
+                     drop, st);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

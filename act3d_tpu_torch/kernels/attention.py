@@ -31,30 +31,33 @@ kernel's jnp VJP in torch ops.  As in JAX, no model path calls it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = [
     "AttentionCore",
+    "BwdPlan",
     "FusedMHA",
+    "FwdPlan",
     "MAX_HEAD_DIM",
     "attention_core",
     "attention_core_forward",
     "attention_core_reference",
+    "bwd_plan",
     "dropout_keep",
     "fused_mha_backward",
     "fused_mha_backward_reference",
     "fused_mha_forward",
     "fused_mha_forward_reference",
+    "fwd_plan",
 ]
 
 MAX_HEAD_DIM = 64
 MASKED_SCORE = -1e30
-_THREADS = 128  # threads of one block (kThreads of both sources)
-_ROW_TILE = 64  # rows staged per step of the backward's dk/dv pass
-# blocks wanted per launch before rows are split across more threads:
-# two per SM of a 132-SM H100
+_THREADS = 128  # threads of one attention_core block (kThreads)
+# blocks wanted per attention_core launch before rows are split across
+# more threads: two per SM of a 132-SM H100
 _TARGET_BLOCKS = 264
 _FWD_SOURCE = "fused_mha_fwd.cu"
 _BWD_SOURCE = "fused_mha_bwd.cu"
@@ -191,28 +194,108 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
 
 # ------------------------------------------------------------------ wrappers
 def _threads_per_row(b: int, l: int, h: int) -> int:
-    """Threads sharing one query row: split rows until the launch has
-    enough blocks to fill the card (small L, e.g. the 50-row sampler
-    sites, gets up to a warp per row)."""
+    """Threads sharing one query row of ``attention_core``'s launch: split
+    rows until the launch has enough blocks to fill the card."""
     tpr = 1
     while tpr < 32 and b * h * -(-l // (_THREADS // tpr)) < _TARGET_BLOCKS:
         tpr *= 2
     return tpr
 
 
-def _dkdv_layout(b: int, l: int, s: int, h: int):
-    """(tpk, nsplit) of the backward's dk/dv pass: threads sharing one key
-    (a short context gets fewer keys per block, so fewer idle threads), and
-    the number of blocks over which L is split when B * H * key tiles
-    alone would leave the card idle (the L=3072, S=53 site)."""
-    tpk = 1
-    while tpk < 32 and _THREADS // tpk >= 2 * s:
-        tpk *= 2
-    blocks = b * h * -(-s // (_THREADS // tpk))
-    nsplit = 1
-    while blocks * nsplit < 2 * _TARGET_BLOCKS and l >= 2 * nsplit * _ROW_TILE:
-        nsplit *= 2
-    return tpk, nsplit
+# Launch plans of the two fused-MHA kernels.  The constants below were
+# chosen by same-call A/Bs on the card (scripts/ab_fused_mha_plans.py; the
+# numbers are in PERF.md): blocks wanted per launch before keys (forward) or rows
+# (backward) are split, the forward's largest query tile and smallest key
+# chunk, and the backward's key tile.
+FWD_TARGET_BLOCKS = 528
+FWD_MAX_WARPS = 4
+FWD_MIN_CHUNK = 64
+BWD_TARGET_BLOCKS = 264
+BWD_KEY_WARPS = 4
+_SPLIT_ROWS = 16  # granularity of the backward's L split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class FwdPlan(NamedTuple):
+    """Launch of ``csrc/fused_mha_fwd.cu``: ``warps`` warps of 16 query rows
+    per block, ``q_tiles`` query tiles, the keys cut into ``nsplit`` chunks
+    of ``chunk`` keys; with nsplit > 1 a workspace of ``workspace_floats``
+    (partial accumulators then partial (m, l)) and a combine kernel."""
+
+    warps: int
+    q_tiles: int
+    chunk: int
+    nsplit: int
+    blocks: int
+    workspace_floats: int
+    kernels: int
+
+
+class BwdPlan(NamedTuple):
+    """Launch of ``csrc/fused_mha_bwd.cu``: ``key_warps`` warps of 16 keys
+    per block, ``key_tiles`` key tiles, L cut into ``nsplit`` splits of
+    ``rows_per_split`` rows; a workspace of ``dq_floats`` (per-key-tile dq
+    slabs, when key_tiles > 1) followed by ``dkv_floats`` (per-split dk and
+    dv slabs, when nsplit > 1), each summed by one more kernel."""
+
+    key_warps: int
+    key_tiles: int
+    rows_per_split: int
+    nsplit: int
+    blocks: int
+    dq_floats: int
+    dkv_floats: int
+    kernels: int
+
+    @property
+    def workspace_floats(self) -> int:
+        return self.dq_floats + self.dkv_floats
+
+
+def fwd_plan(b: int, l: int, s: int, h: int, d: int,
+             target_blocks: int = FWD_TARGET_BLOCKS, max_warps: int = FWD_MAX_WARPS,
+             min_chunk: int = FWD_MIN_CHUNK) -> FwdPlan:
+    """Query tile: the fewest warps (up to ``max_warps``) that cover L.
+    When query tiles x H x B give fewer than ``target_blocks`` blocks, the
+    keys are split into chunks (a multiple of 8 keys, at least
+    ``min_chunk``) so that the launch reaches it (flash-decoding)."""
+    warps = 1
+    while warps < max_warps and 16 * warps < l:
+        warps *= 2
+    q_tiles = _cdiv(l, 16 * warps)
+    base = q_tiles * h * b
+    chunk = s
+    if base < target_blocks:
+        chunk = min(s, max(min_chunk, 8 * _cdiv(_cdiv(s, _cdiv(target_blocks, base)), 8)))
+    nsplit = _cdiv(s, chunk)
+    work = nsplit * b * l * (h * d + 2 * h) if nsplit > 1 else 0
+    return FwdPlan(warps, q_tiles, chunk, nsplit, base * nsplit, work,
+                   1 + (nsplit > 1))
+
+
+def bwd_plan(b: int, l: int, s: int, h: int, d: int,
+             target_blocks: int = BWD_TARGET_BLOCKS,
+             key_warps: int = BWD_KEY_WARPS) -> BwdPlan:
+    """Key tile: ``key_warps`` warps of 16 keys, fewer for a short context.
+    When key tiles x H x B give fewer than ``target_blocks`` blocks, L is
+    split (a multiple of 16 rows per split)."""
+    kw = key_warps
+    while kw > 1 and 16 * (kw // 2) >= s:
+        kw //= 2
+    key_tiles = _cdiv(s, 16 * kw)
+    base = key_tiles * h * b
+    rows = l
+    if base < target_blocks and l > _SPLIT_ROWS:
+        rows = _SPLIT_ROWS * _cdiv(_cdiv(l, _cdiv(target_blocks, base)), _SPLIT_ROWS)
+    nsplit = _cdiv(l, rows)
+    e = h * d
+    dq_floats = key_tiles * b * l * e if key_tiles > 1 else 0
+    dkv_floats = 2 * nsplit * b * s * e if nsplit > 1 else 0
+    return BwdPlan(kw, key_tiles, rows, nsplit, base * nsplit, dq_floats, dkv_floats,
+                   1 + (key_tiles > 1) + (nsplit > 1))
 
 
 def _fwd_fn():
@@ -220,7 +303,7 @@ def _fwd_fn():
 
     fn = _build.load(_FWD_SOURCE).act3d_fused_mha_fwd_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -311,21 +394,29 @@ def fused_mha_forward(
 fused_mha_forward.launches = 0  # kernel launches since the last reset
 
 
-def _launch_fwd(q, k, v, num_heads, mask, rate, seed):
+def _workspace(floats, device):
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
+def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None):
+    """One forward kernel call; ``plan`` overrides :func:`fwd_plan` (the
+    plan A/B script uses it)."""
     b, l, e = q.shape
     s = k.shape[1]
     d = e // num_heads
     _check_cuda(mask, d, q=q, k=k, v=v)
+    plan = plan or fwd_plan(b, l, s, num_heads, d)
     fn = _fwd_fn()
     out = torch.empty_like(q)
     stats = torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
+    work = _workspace(plan.workspace_floats, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            out.data_ptr(), stats.data_ptr(),
-            b, l, s, num_heads, d, _threads_per_row(b, l, num_heads),
+            out.data_ptr(), stats.data_ptr(), None if work is None else work.data_ptr(),
+            b, l, s, num_heads, d, plan.warps, plan.chunk, plan.nsplit,
             *_dropout_args(rate, seed), stream,
         )
     if rc != 0:
@@ -351,19 +442,20 @@ def fused_mha_backward(q, k, v, out, stats, grad_out, num_heads,
 fused_mha_backward.launches = 0  # kernel launches since the last reset
 
 
-def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed):
+def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
+                plan: Optional[BwdPlan] = None):
+    """One backward kernel call; ``plan`` overrides :func:`bwd_plan`."""
     b, l, e = q.shape
     s = k.shape[1]
     d = e // num_heads
     delta = _delta(out, grad_out, num_heads).contiguous()
     _check_cuda(mask, d, q=q, k=k, v=v, grad_out=grad_out, stats=stats)
+    plan = plan or bwd_plan(b, l, s, num_heads, d)
     fn = _bwd_fn()
-    tpk, nsplit = _dkdv_layout(b, l, s, num_heads)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    work = (torch.empty((2, nsplit, b, s, e), dtype=torch.float32, device=q.device)
-            if nsplit > 1 else None)
+    work = _workspace(plan.workspace_floats, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -372,7 +464,7 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed):
             None if mask is None else mask.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, l, s, num_heads, d, _threads_per_row(b, l, num_heads), tpk, nsplit,
+            b, l, s, num_heads, d, plan.key_warps, plan.rows_per_split, plan.nsplit,
             *_dropout_args(rate, seed), stream,
         )
     if rc != 0:

@@ -8,14 +8,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: torch/CUDA versions, the card's name and power limit; TF32
      is switched off for matmuls and convolutions.
   2. build: nvcc builds every CUDA source of the port for sm_90a (one nvcc
-     per source, all started together).
+     per source, all started together); prints each kernel's ptxas report
+     (registers, spills).
   3. kernel: the fused-MHA forward kernel against its plain PyTorch
      version at every attention shape of the serving keystep (plus a
      padded-key mask and a fully masked row), atol 2e-5 / rtol 1e-4 on
-     out and stats; device times (calls replayed from a CUDA graph) of
-     the kernel, the plain version and torch's
-     scaled_dot_product_attention (timing yardstick only), and the
-     kernel's time per eager call from Python.
+     out and stats, a repeated call bit-identical; device times (calls
+     replayed from a CUDA graph) of the kernel, the plain version and
+     torch's scaled_dot_product_attention (timing yardstick only), the
+     kernel's time per eager call from Python, the float32 bound (67
+     TFLOP/s) and the tensor-core bound (3xTF32 at 165 TFLOP/s, the
+     exponentials at the card's max SM clock, the bytes), and the launch
+     plan's device kernels per call and workspace bytes.
   4. small keystep: the chained Actioner at a small size on the card
      against the same weights and injected samples on the CPU.
   5. serve: the Actioner at the reference widths (Act3D emb 60 / 3
@@ -29,10 +33,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      attention shape of the ChainedDiffuser training step (B=16, E=120,
      H=8), plus a padded-key mask, a fully masked row and rate 0, and at
      the three attention shapes of the Act3D keypose training step (B=16,
-     E=60, H=4, rate 0); the keep fraction of the hash mask; device times
-     of both kernels, their plain versions and SDPA (forward, and backward
-     through autograd as forward + backward minus forward, at
-     dropout_p=0: timing yardstick only).
+     E=60, H=4, rate 0); repeated calls bit-identical; the keep fraction
+     of the hash mask; device times of both kernels, their plain versions
+     and SDPA (forward, and backward through autograd as forward +
+     backward minus forward, at dropout_p=0: timing yardstick only) beside
+     both bounds; then the device kernels per wrapper call and the
+     workspace bytes at every site and per unit of the main path.
   7. gather kernels: the sorted and unsorted row-scatter kernels (the
      fine-context gather's adjoint) against their plain version at the
      Act3D fine-level shape (B=16, K=3072, C=60, P=49152) for three index
@@ -114,11 +120,13 @@ from act3d_tpu_torch.kernels.attention import (
     attention_core,
     attention_core_forward,
     attention_core_reference,
+    bwd_plan,
     dropout_keep,
     fused_mha_backward,
     fused_mha_backward_reference,
     fused_mha_forward,
     fused_mha_forward_reference,
+    fwd_plan,
 )
 from act3d_tpu_torch.kernels.gather import (
     scatter_rows,
@@ -147,6 +155,10 @@ ATOL, RTOL = 2e-5, 1e-4
 # version's matmuls; the expected error is ~1e-5 at these magnitudes
 BWD_ATOL, BWD_RTOL = 1e-4, 1e-3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# float32 accuracy on the TF32 tensor cores (495 TFLOP/s): three TF32
+# products per product (3xTF32, csrc/mma_tf32.cuh)
+PEAK_TC_F32_FLOPS = 495e12 / 3
+EXP_PER_CLOCK = 132 * 16  # exponentials per clock: 132 SMs x 16 special-function lanes
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BOUNDS = ((-0.3, -0.5, 0.75), (0.7, 0.5, 1.5))
 SEED = 0
@@ -260,11 +272,16 @@ KEYPOSE_SHAPES = [
 ]
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query="name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it (MHz)."""
+    return float(nvidia_smi("clocks.max.sm").split()[0])
 
 
 def _event_ms(run, calls: int) -> float:
@@ -324,18 +341,59 @@ def make_mask(kind, s, dev):
     return mask
 
 
-def bound(l, s, e, h, b, masked):
+def fwd_work(l, s, e, h, b, masked):
+    """FLOPs (q k^T and p v) and bytes (q, k, v, the mask read; out, stats
+    written) of one forward call."""
     flops = 4.0 * b * l * s * e
     nbytes = 4.0 * (2 * b * l * e + 2 * b * s * e + 2 * b * l * h) + (b * s if masked else 0)
-    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes
 
 
-def bound_bwd(l, s, e, h, b, masked):
+def bwd_work(l, s, e, h, b, masked):
     """Five (L, S, d) products per head; the wrapper reads q, out, dO, k,
     v, stats (and the mask) and writes dq, dk, dv, each byte once."""
     flops = 10.0 * b * l * s * e
     nbytes = 4.0 * (4 * b * l * e + 4 * b * s * e + 2 * b * l * h) + (b * s if masked else 0)
+    return flops, nbytes
+
+
+def bound(l, s, e, h, b, masked):
+    """The float32 bound: FLOPs at 67 TFLOP/s outside the tensor cores,
+    bytes at 3.35 TB/s."""
+    flops, nbytes = fwd_work(l, s, e, h, b, masked)
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def bound_bwd(l, s, e, h, b, masked):
+    flops, nbytes = bwd_work(l, s, e, h, b, masked)
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def tc_bound(flops, exps, nbytes, sm_mhz):
+    """The fused-MHA kernels' tensor-core bound: the largest of the FLOPs at
+    165 TFLOP/s (3xTF32), the exponentials on the special-function units at
+    the card's SM clock, and the bytes at 3.35 TB/s."""
+    times = {"operations": flops / PEAK_TC_F32_FLOPS * 1e3,
+             "exponentials": exps / (EXP_PER_CLOCK * sm_mhz * 1e6) * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(times, key=times.get)
+    return dict(tc_bound_ms=times[by], tc_bound_by=by)
+
+
+def fwd_tc_bound(l, s, e, h, b, masked, sm_mhz):
+    flops, nbytes = fwd_work(l, s, e, h, b, masked)
+    return tc_bound(flops, b * l * s * h, nbytes, sm_mhz)
+
+
+def bwd_tc_bound(l, s, e, h, b, masked, sm_mhz):
+    flops, nbytes = bwd_work(l, s, e, h, b, masked)
+    return tc_bound(flops, b * l * s * h, nbytes, sm_mhz)
+
+
+def plan_row(plan):
+    """The launch plan of one call: device kernels and workspace bytes."""
+    return dict(kernels_per_call=plan.kernels, workspace_bytes=4 * plan.workspace_floats,
+                plan=plan._asdict())
 
 
 def bound_core(l, s, d, bh, masked):
@@ -360,7 +418,7 @@ def _max_errs(pairs):
     return abs_err, rel_err
 
 
-def phase_kernels(dev, card):
+def phase_kernels(dev, card, sm_mhz):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     side = torch.cuda.Stream()
     rows = []
@@ -378,6 +436,8 @@ def phase_kernels(dev, card):
                   ((stats - ref_stats).abs() / ref_stats.abs().clamp_min(1e-30)).max().item())
         torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
         torch.testing.assert_close(stats, ref_stats, atol=ATOL, rtol=RTOL)
+        again = fused_mha_forward(q, k, v, h, mask, return_stats=True)
+        assert torch.equal(out, again[0]) and torch.equal(stats, again[1]), site
         if kind == "full":
             uniform = v[1].mean(dim=0).expand(l, e)
             torch.testing.assert_close(out[1], uniform, atol=ATOL, rtol=RTOL)
@@ -400,12 +460,17 @@ def phase_kernels(dev, card):
                    max_abs_err=err, max_rel_err=rel, ms=ms, eager_ms=kernel_eager_ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   ops_ms=t_ops, bytes_ms=t_bytes)
+                   ops_ms=t_ops, bytes_ms=t_bytes,
+                   **fwd_tc_bound(l, s, e, h, b, mask is not None, sm_mhz),
+                   **plan_row(fwd_plan(b, l, s, h, d)))
         rows.append(row)
         print(f"kernel {site:24s} B={b} L={l} S={s} E={e} H={h} mask={kind}: "
-              f"max_abs {err:.3e} max_rel {rel:.3e} | kernel {ms:.4f} ms (eager call "
-              f"{kernel_eager_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) | {card}", flush=True)
+              f"max_abs {err:.3e} max_rel {rel:.3e}, repeat bit-identical | kernel {ms:.4f} ms "
+              f"(eager call {kernel_eager_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, f32 bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"tensor-core bound {row['tc_bound_ms']:.5f} ms ({row['tc_bound_by']}) | "
+              f"{row['kernels_per_call']} device kernel(s), workspace "
+              f"{row['workspace_bytes']} bytes | {card}", flush=True)
     return rows
 
 
@@ -466,7 +531,7 @@ def train_mask(kind, b, s, dev):
     return mask
 
 
-def phase_train_kernels(dev, card, shapes, e, h, seed_base):
+def phase_train_kernels(dev, card, shapes, e, h, seed_base, sm_mhz):
     """Both kernels at one training step's shapes (B = 16, width e, h
     heads), with the step's dropout, against their plain versions; device
     times beside the bound, plain and SDPA."""
@@ -496,6 +561,10 @@ def phase_train_kernels(dev, card, shapes, e, h, seed_base):
         torch.testing.assert_close(stats, ref_stats, atol=ATOL, rtol=RTOL)
         for got, want in zip(grads, ref_grads):
             torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=BWD_RTOL)
+        again = fused_mha_forward(q, k, v, h, mask, True, rate, seed)
+        grads_again = fused_mha_backward(q, k, v, out, stats, g, h, mask, rate, seed)
+        assert all(torch.equal(a, b) for a, b in zip((out, stats, *grads),
+                                                     (*again, *grads_again))), site
         assert abs(keep - (1.0 - rate)) < 0.005, keep
         if kind == "full" and not rate:
             torch.testing.assert_close(out[1], v[1].mean(dim=0).expand(l, e), atol=ATOL,
@@ -530,16 +599,24 @@ def phase_train_kernels(dev, card, shapes, e, h, seed_base):
                       per_step=per_step)
         fwd_rows.append(dict(common, max_abs_err=fwd_err[0], max_rel_err=fwd_err[1],
                              keep_fraction=keep, ms=fwd_ms, plain_ms=fwd_plain,
-                             library_ms=lib_fwd, **_bound_row(*bound(l, s, e, h, b, kind))))
+                             library_ms=lib_fwd, **_bound_row(*bound(l, s, e, h, b, kind)),
+                             **fwd_tc_bound(l, s, e, h, b, kind, sm_mhz),
+                             **plan_row(fwd_plan(b, l, s, h, d))))
         bwd_rows.append(dict(common, max_abs_err=bwd_err[0], max_rel_err=bwd_err[1],
                              ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
                              library_fwd_bwd_ms=lib_fwd_bwd,
-                             **_bound_row(*bound_bwd(l, s, e, h, b, kind))))
+                             **_bound_row(*bound_bwd(l, s, e, h, b, kind)),
+                             **bwd_tc_bound(l, s, e, h, b, kind, sm_mhz),
+                             **plan_row(bwd_plan(b, l, s, h, d))))
+        fr, br = fwd_rows[-1], bwd_rows[-1]
         print(f"train kernel {site:28s} fwd {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, sdpa "
-              f"{lib_fwd:.4f}, bound {fwd_rows[-1]['bound_ms']:.5f} "
-              f"{fwd_rows[-1]['bound_by']}) | bwd {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, "
-              f"sdpa {lib_bwd:.4f}, bound {bwd_rows[-1]['bound_ms']:.5f} "
-              f"{bwd_rows[-1]['bound_by']}) | {card}", flush=True)
+              f"{lib_fwd:.4f}, f32 bound {fr['bound_ms']:.5f} {fr['bound_by']}, tensor-core "
+              f"bound {fr['tc_bound_ms']:.5f} {fr['tc_bound_by']}; {fr['kernels_per_call']} "
+              f"device kernel(s), workspace {fr['workspace_bytes']} bytes) | bwd {bwd_ms:.4f} "
+              f"ms (plain {bwd_plain:.4f}, sdpa {lib_bwd:.4f}, f32 bound {br['bound_ms']:.5f} "
+              f"{br['bound_by']}, tensor-core bound {br['tc_bound_ms']:.5f} "
+              f"{br['tc_bound_by']}; {br['kernels_per_call']} device kernel(s), workspace "
+              f"{br['workspace_bytes']} bytes) | {card}", flush=True)
     return fwd_rows, bwd_rows
 
 
@@ -1060,6 +1137,25 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
                 peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
 
 
+def print_plans(serve_rows, train_fwd, train_bwd, kp_fwd, kp_bwd):
+    """The device kernels each fused-MHA wrapper call runs (one, or two with
+    the forward's split combine or the backward's slab sums) and its
+    workspace, per site and per unit of the main path."""
+    units = (("fused_mha_fwd", "serving keystep", serve_rows, "per_keystep"),
+             ("fused_mha_fwd", "ChainedDiffuser step", train_fwd, "per_step"),
+             ("fused_mha_bwd", "ChainedDiffuser step", train_bwd, "per_step"),
+             ("fused_mha_fwd", "Act3D step", kp_fwd, "per_step"),
+             ("fused_mha_bwd", "Act3D step", kp_bwd, "per_step"))
+    for name, unit, unit_rows, per in units:
+        live = [r for r in unit_rows if r[per]]
+        for r in live:
+            print(f"{name} device kernels per call at {r['site']}: {r['kernels_per_call']}, "
+                  f"workspace {r['workspace_bytes']} bytes", flush=True)
+        print(f"{name} per {unit}: {sum(r[per] for r in live)} wrapper calls, "
+              f"{sum(r[per] * r['kernels_per_call'] for r in live)} device kernels; largest "
+              f"workspace {max(r['workspace_bytes'] for r in live)} bytes", flush=True)
+
+
 def phase_serve(dev, card):
     rng = np.random.default_rng(SEED)
     bank = rng.normal(size=(N_INSTR, 512)).astype(np.float32)
@@ -1114,9 +1210,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
+    sm_mhz = sm_clock_mhz()
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
+    print(f"max SM clock (nvidia-smi clocks.max.sm): {sm_mhz:.0f} MHz", flush=True)
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
@@ -1127,7 +1225,9 @@ def main() -> int:
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry" in line:
+                    line = line.split("'")[1] if "'" in line else line
+                if "registers" in line or "spill" in line or line.startswith("_Z"):
                     print(f"ptxas {src}: {line.strip()}", flush=True)
 
     main_path = {}  # the launches of every kernel in each main-path phase
@@ -1141,14 +1241,15 @@ def main() -> int:
         main_path[phase] = {name: kernel.launches for name, kernel in KERNELS.items()}
         return out
 
-    rows = phase_kernels(dev, card)
+    rows = phase_kernels(dev, card, sm_mhz)
     phase_small_keystep(dev)
     serve_launches, latencies, memory = drive("serve", phase_serve, dev, card)
     train_fwd_rows, train_bwd_rows = phase_train_kernels(
-        dev, card, TRAIN_SHAPES, PLANNER_CFG["embedding_dim"], 8, SEED + 1)
+        dev, card, TRAIN_SHAPES, PLANNER_CFG["embedding_dim"], 8, SEED + 1, sm_mhz)
     kp_fwd_rows, kp_bwd_rows = phase_train_kernels(
         dev, card, KEYPOSE_SHAPES, ACT3D_CFG["embedding_dim"], ACT3D_CFG["num_attn_heads"],
-        SEED + 2)
+        SEED + 2, sm_mhz)
+    print_plans(rows, train_fwd_rows, train_bwd_rows, kp_fwd_rows, kp_bwd_rows)
     gather_rows = phase_gather_kernels(dev, card)
     core_rows = phase_attention_core(dev, card)
     chunked_row = phase_chunked(dev, card)
@@ -1174,14 +1275,15 @@ def main() -> int:
         return sum(r[key[0]] * r[key[1]] for r in shape_rows if r[key[1]])
 
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")
-    serve = {k: per_unit(rows, (k, "per_keystep")) for k in keys + ("eager_ms",)}
-    train = {k: per_unit(train_fwd_rows, (k, "per_step")) for k in keys}
-    bwd = {k: per_unit(train_bwd_rows, (k, "per_step")) for k in keys}
-    kp_fwd = {k: per_unit(kp_fwd_rows, (k, "per_step")) for k in keys}
-    kp_bwd = {k: per_unit(kp_bwd_rows, (k, "per_step")) for k in keys}
+    mha_keys = keys + ("tc_bound_ms",)
+    serve = {k: per_unit(rows, (k, "per_keystep")) for k in mha_keys + ("eager_ms",)}
+    train = {k: per_unit(train_fwd_rows, (k, "per_step")) for k in mha_keys}
+    bwd = {k: per_unit(train_bwd_rows, (k, "per_step")) for k in mha_keys}
+    kp_fwd = {k: per_unit(kp_fwd_rows, (k, "per_step")) for k in mha_keys}
+    kp_bwd = {k: per_unit(kp_bwd_rows, (k, "per_step")) for k in mha_keys}
 
     def total(*units):
-        out = {k: sum(u[k] for u in units) for k in keys}
+        out = {k: sum(u[k] for u in units) for k in units[0] if all(k in u for u in units)}
         out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
         return out
 
@@ -1193,7 +1295,8 @@ def main() -> int:
         "replaces": "act3d_tpu/kernels/attention.py:212",
         "launches": launches["fused_mha_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows + kp_fwd_rows),
-        **{k: fwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        **{k: fwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                                     "tc_bound_ms")},
         "per": "one serving keystep plus one ChainedDiffuser training step plus one Act3D "
                "training step: sum over their launches of the per-call device time at each "
                "shape (serve, train and keypose_train below apart)",
@@ -1209,7 +1312,8 @@ def main() -> int:
         "replaces": "act3d_tpu/kernels/attention.py:289",
         "launches": launches["fused_mha_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows + kp_bwd_rows),
-        **{k: bwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        **{k: bwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                                     "tc_bound_ms")},
         "per": "one ChainedDiffuser training step plus one Act3D training step: sum over "
                "their launches of the per-call device time at each shape; library_ms is "
                "SDPA's forward + backward minus its forward",

@@ -20,12 +20,18 @@ gpu-marked tests also run where neither is installed:
     python -m pytest --noconftest tests/test_torch_attention_grad.py -m gpu
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from act3d_tpu_torch.kernels import attention
 from act3d_tpu_torch.kernels.attention import (
+    BwdPlan,
     FusedMHA,
+    bwd_plan,
     dropout_bits,
     dropout_keep,
     fused_mha_backward,
@@ -268,3 +274,120 @@ def test_cuda_kernels_match_plain_versions(b, l, s, e, heads, mask_kind, rate):
     want = fused_mha_backward_reference(q, k, v, out, stats, g, heads, mask, rate, seed)
     for a, w in zip(grads, want):
         torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-3)
+
+
+# (B, L, S, H, d) of every backward site of chip_smoke.py (both training
+# steps, B = 16)
+SMOKE_BWD_SITES = [
+    (16, 3072, 53, 8, 15), (16, 50, 53, 8, 15), (16, 50, 3074, 8, 15), (16, 50, 50, 8, 15),
+    (16, 3073, 53, 4, 15), (16, 333, 3126, 4, 15), (16, 1, 3126, 4, 15),
+]
+
+
+def test_bwd_plan_covers_s_and_l_exactly():
+    """Key tiles cover S and L splits cover L, with no empty tile or split;
+    the workspace holds the dq slabs, then the dk/dv slabs, as the C
+    interface reads them."""
+    rng = np.random.default_rng(1)
+    cases = list(SMOKE_BWD_SITES) + [
+        (int(rng.integers(1, 20)), int(rng.integers(1, 4000)), int(rng.integers(1, 4000)),
+         int(rng.integers(1, 9)), int(rng.integers(1, 65))) for _ in range(200)]
+    for b, l, s, h, d in cases:
+        plan = bwd_plan(b, l, s, h, d)
+        keys = 16 * plan.key_warps
+        assert plan.key_warps in (1, 2, 4, 8)
+        assert (plan.key_tiles - 1) * keys < s <= plan.key_tiles * keys
+        assert (plan.nsplit - 1) * plan.rows_per_split < l <= plan.nsplit * plan.rows_per_split
+        assert plan.blocks == plan.key_tiles * plan.nsplit * h * b
+        e = h * d
+        assert plan.dq_floats == (plan.key_tiles * b * l * e if plan.key_tiles > 1 else 0)
+        assert plan.dkv_floats == (2 * plan.nsplit * b * s * e if plan.nsplit > 1 else 0)
+        assert plan.workspace_floats == plan.dq_floats + plan.dkv_floats
+        assert plan.kernels == 1 + (plan.key_tiles > 1) + (plan.nsplit > 1)
+
+
+@pytest.mark.parametrize("b,l,s,h,d", SMOKE_BWD_SITES)
+def test_bwd_plan_fills_the_card(b, l, s, h, d):
+    """Every training site launches at least one block per SM: the S = 53
+    sites through the L split, the L = 1 site through its key tiles."""
+    assert bwd_plan(b, l, s, h, d).blocks >= 132
+
+
+def test_bwd_wrapper_tells_the_c_interface_its_plan(monkeypatch):
+    """The launch passes the plan's key warps, rows per split and nsplit, and
+    a workspace of the plan's size, to act3d_fused_mha_bwd_f32 (a fake
+    library function here, since there is no card)."""
+    calls, sizes = [], []
+    monkeypatch.setattr(attention, "_bwd_fn", lambda: lambda *a: calls.append(a) or 0)
+    workspace = attention._workspace
+    monkeypatch.setattr(attention, "_workspace",
+                        lambda n, dev: sizes.append(n) or workspace(n, dev))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    for b, l, s, h, d in [(2, 3072, 53, 8, 15), (2, 50, 3074, 8, 15), (1, 20, 30, 2, 16)]:
+        q, k, v = (torch.zeros(b, n, h * d) for n in (l, s, s))
+        stats = torch.ones(b, l, 2 * h)
+        plan = bwd_plan(b, l, s, h, d)
+        attention._launch_bwd(q, k, v, q, stats, q, h, None, 0.0, None)
+        args = calls[-1]
+        assert args[11:20] == (b, l, s, h, d, plan.key_warps, plan.rows_per_split,
+                               plan.nsplit, 0)
+        assert sizes[-1] == plan.workspace_floats
+        assert (args[10] is None) == (plan.workspace_floats == 0)
+
+
+def _cuda_case(seed, b, l, s, e, heads, mask_kind):
+    q, k, v, g, mask = _inputs(seed, b, l, s, e, heads, mask_kind)
+    dev = torch.device("cuda")
+    return ([torch.as_tensor(x, device=dev) for x in (q, k, v, g)],
+            None if mask is None else torch.as_tensor(mask, device=dev))
+
+
+def _check_grads(q, k, v, g, heads, mask, rate, seed, plan=None):
+    out, stats = fused_mha_forward(q, k, v, heads, mask, True, rate, seed)
+    runs = [attention._launch_bwd(q, k, v, out, stats, g, heads, mask, rate, seed, plan)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fused_mha_backward_reference(q, k, v, out, stats, g, heads, mask, rate, seed)
+    for got, again, w in zip(*runs, want):
+        torch.testing.assert_close(got, w, atol=1e-4, rtol=1e-3)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mask_kind", [None, "full_row"])
+@pytest.mark.parametrize("l", [1, 17, 65])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 65, 129])
+@pytest.mark.parametrize("e,heads", [(16, 2), (60, 4), (32, 2), (64, 2), (128, 2)])
+def test_cuda_backward_ragged_edges_and_head_dims(e, heads, s, l, mask_kind, rate):
+    """On the card: L and S at the edges of the 8-row chunk, the 16-key warp
+    tile and the 64-key block tile, head dims 8, 15, 16, 32 and 64, masked
+    (a fully masked row: the TPU gradient) with and without dropout; dq, dk,
+    dv at atol 1e-4 / rtol 1e-3 and bit-identical when repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (q, k, v, g), mask = _cuda_case(7, 2, l, s, e, heads, mask_kind)
+    _check_grads(q, k, v, g, heads, mask, rate, 5 if rate else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("key_warps,rows_per_split", [(1, 300), (2, 64), (4, 128), (8, 70),
+                                                      (8, 1)])
+def test_cuda_backward_any_plan(key_warps, rows_per_split, rate):
+    """On the card: any key tile and L split (dq slabs, dk/dv slabs, both)
+    gives the plain version's gradients, bit-identical when repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, l, s, e, heads = 2, 300, 150, 60, 4
+    (q, k, v, g), mask = _cuda_case(8, b, l, s, e, heads, "padded")
+    key_tiles = -(-s // (16 * key_warps))
+    nsplit = -(-l // rows_per_split)
+    dq = key_tiles * b * l * e if key_tiles > 1 else 0
+    dkv = 2 * nsplit * b * s * e if nsplit > 1 else 0
+    plan = BwdPlan(key_warps, key_tiles, rows_per_split, nsplit,
+                   key_tiles * nsplit * heads * b, dq, dkv,
+                   1 + (key_tiles > 1) + (nsplit > 1))
+    _check_grads(q, k, v, g, heads, mask, rate, 3 if rate else None, plan)

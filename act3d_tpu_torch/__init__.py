@@ -16,8 +16,10 @@ state_dict).
 Entry points (the model constructors, :class:`eval.actioner.Actioner`, the
 training CLIs) default to the card and raise when no card is present; pass
 ``device="cpu"`` (``--device cpu``) to run the plain versions on the CPU.
+On the card they run matmuls and cuDNN convolutions in full float32, never
+TF32 (:func:`device.pin_float32`, applied by :func:`resolve_device`).
 """
 
-from .device import resolve_device
+from .device import float32_precision, pin_float32, resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["float32_precision", "pin_float32", "resolve_device"]

@@ -15,6 +15,14 @@
 //   row is scaled by 1 / ((1 - rate) l) at the end.  The keep mask comes
 //   from dropout_hash.cuh, keyed on absolute (seed, b, h, row, col).
 //
+// It also replaces the single-head-layout TPU kernel
+// act3d_tpu/kernels/attention.py::_attention_core_fwd_impl (bodies
+// _attn_kernel and _attn_kernel_masked, reached through attention_core):
+// q (BH, L, D) and k/v (BH, S, D) are this contract at B = BH, H = 1,
+// E = D, rate 0, with a (BH, S) mask and no stats.  A null stats pointer
+// selects instantiations without them (STATS = false): neither kernel
+// writes any to HBM, and the fused sites' instantiations stay as they were.
+//
 // What bounds it on the H100: 4*L*S*E FLOPs per call (q k^T and p v) and
 // L*S*H exponentials.  On the tensor cores at float32 accuracy (3xTF32,
 // three TF32 products per product: 495 / 3 = 165 TFLOP/s) the ghost-point
@@ -92,8 +100,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // blockDim 32 * max(row_warps, kMinWarps); warps [0, row_warps) own 16
 // query rows each.  part_acc == nullptr: one chunk, write out/stats;
 // else write the chunk's partial acc (nsplit, B, L, E) and (m, l)
-// (nsplit, B, L, H, 2).
-template <int DP, bool DROPOUT>
+// (nsplit, B, L, H, 2).  STATS = false writes no stats.
+template <int DP, bool DROPOUT, bool STATS>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -278,7 +286,7 @@ mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (part_acc == nullptr) {
       dst = out + bl * E + h * d;
       scale = (DROPOUT ? drop.inv_keep : 1.f) / ls[r];
-      if (t == 0) {
+      if (STATS && t == 0) {
         stats[bl * (2 * H) + 2 * h] = ms[r];
         stats[bl * (2 * H) + 2 * h + 1] = ls[r];
       }
@@ -316,7 +324,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int DP>
+template <int DP, bool STATS>
 __global__ void mha_fwd_combine_kernel(const float* __restrict__ part_acc,
                                        const float* __restrict__ part_ml,
                                        float* __restrict__ out,
@@ -360,14 +368,14 @@ __global__ void mha_fwd_combine_kernel(const float* __restrict__ part_acc,
         if ((c & 31) == lane) o[c] = x * scale;
       }
     }
-    if (lane == 0) {
+    if (STATS && lane == 0) {
       stats[bl * (2 * H) + 2 * h] = m;
       stats[bl * (2 * H) + 2 * h + 1] = l;
     }
   }
 }
 
-template <int DP, bool DROPOUT>
+template <int DP, bool DROPOUT, bool STATS>
 cudaError_t launch_dp(const float* q, const float* k, const float* v,
                       const uint8_t* mask, float* out, float* stats, float* work,
                       int B, int L, int S, int H, int d, int warps, int chunk,
@@ -375,7 +383,7 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v,
   const int q_tiles = (L + 16 * warps - 1) / (16 * warps);
   const int threads = 32 * (warps > kMinWarps ? warps : kMinWarps);
   const size_t smem = 4 * kKeyTile * (DP + 4) * sizeof(float) + kKeyTile;
-  auto kernel = mha_fwd_kernel<DP, DROPOUT>;
+  auto kernel = mha_fwd_kernel<DP, DROPOUT, STATS>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -389,7 +397,7 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v,
   if (nsplit > 1) {
     const size_t items = (size_t)B * L * H;  // one warp each
     const int blocks = (int)((items + 7) / 8 < 8192 ? (items + 7) / 8 : 8192);
-    mha_fwd_combine_kernel<DP><<<blocks, 256, 0, stream>>>(
+    mha_fwd_combine_kernel<DP, STATS><<<blocks, 256, 0, stream>>>(
         part_acc, part_ml, out, stats, B, L, H, d, nsplit,
         DROPOUT ? drop.inv_keep : 1.f);
   }
@@ -401,12 +409,16 @@ cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
                    const uint8_t* mask, float* out, float* stats, float* work, int B,
                    int L, int S, int H, int d, int warps, int chunk, int nsplit,
                    Dropout drop, cudaStream_t stream) {
-  if (dropout) {
-    return launch_dp<DP, true>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
-                               chunk, nsplit, drop, stream);
+  if (stats == nullptr) {  // the single-head-layout core: no dropout, no stats
+    return launch_dp<DP, false, false>(q, k, v, mask, out, stats, work, B, L, S, H, d,
+                                       warps, chunk, nsplit, drop, stream);
   }
-  return launch_dp<DP, false>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
-                              chunk, nsplit, drop, stream);
+  if (dropout) {
+    return launch_dp<DP, true, true>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
+                                     chunk, nsplit, drop, stream);
+  }
+  return launch_dp<DP, false, true>(q, k, v, mask, out, stats, work, B, L, S, H, d, warps,
+                                    chunk, nsplit, drop, stream);
 }
 
 }  // namespace
@@ -418,8 +430,9 @@ cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
 // keys (nsplit = ceil(S / chunk), no chunk empty).  With nsplit > 1,
 // `work` holds nsplit * B * L * (E + 2H) floats: the partial accumulators,
 // then the partial (m, l).  dropout != 0 selects the dropout instantiation
-// with the keep threshold and 1/(1-rate) computed on the host.  Returns
-// cudaGetLastError() after the launches (0 = success).
+// with the keep threshold and 1/(1-rate) computed on the host.  stats may
+// be null where dropout is 0 (the core): then no stats are written.
+// Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* mask,
                                        void* out, void* stats, void* work, int B,
@@ -431,7 +444,7 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
   if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
       d > 64 || !warps_ok || chunk < 1 || nsplit < 1 ||
       (long long)(nsplit - 1) * chunk >= S || (long long)nsplit * chunk < S ||
-      (nsplit > 1 && work == nullptr)) {
+      (nsplit > 1 && work == nullptr) || (stats == nullptr && dropout != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const Dropout drop{seed, threshold, inv_keep};

@@ -5,7 +5,7 @@
 //     gather_tokens(..., sorted_indices=True), Act3D's fine-context gather);
 //   * onehot_scatter_rows (unique indices in any order);
 //   * onehot_scatter_rows_chunked (the sorted function again, with the
-//     tiles of one batch row split into n_chunks runs walked in-kernel).
+//     tiles of one batch row split into n_chunks runs on the TPU's grid).
 // Same contract:
 //   g (B, K, C) float32, unit stride along C, any batch and row strides;
 //   idx (B, K) int64, unique per batch row, in [0, P);
@@ -22,35 +22,37 @@
 // gather unit; here a row copy is the cheapest form, so the design only has
 // to write each output byte once, coalesced.
 //
-// Design (simple and correct first):
+// Design:
 //   * gather form: one block writes whole tiles of output rows of one batch
 //     row; it writes every row of a tile exactly once, the matching g row
 //     or zeros.  No zero-fill pass, no atomics.
-//   * sorted entries (sorted and chunked): unique ascending indices put
-//     every hit of a tile [p0, p0 + p_tile) in one contiguous window
-//     [j_lo, j_hi) of idx[b], found by two binary searches (two warps, one
-//     each); the window's j + 1 are written into a slot table of p_tile
-//     ints in dynamic shared memory.  No (B, P) buffer.  One kernel body
-//     serves both: one block per (b, chunk) walks its n_inner tiles in
-//     order.  The sorted entry launches it with p_tile = kTile and one tile
-//     per block.  The chunked entry keeps the TPU kernel's split: grid
-//     (B, n_chunks), each step looping over n_inner P-tiles of p_tile rows
-//     (on the TPU against a VMEM-resident (K, C) cotangent, to amortise the
-//     per-grid-step overhead).  The TPU's padding of P to p_tile * n_chunks
-//     sets only which rows each chunk owns; rows >= P are never written.
-//     There is no Mosaic tiling rule on the card, so every K, p_tile (up to
-//     the shared memory of a block) and n_chunks is taken, with no fallback
-//     to the sorted entry.  With few chunks the grid is small (B * n_chunks
-//     blocks: 64 at JAX's default of 4 chunks and B = 16, for 132 SMs), so
-//     that entry is no faster than the sorted one; it has no model path, in
-//     JAX as here.
+//   * sorted body (the sorted function, so also the chunked one): one block
+//     per tile of kTile = 128 rows, grid (ceil(P / kTile), B): 6144 blocks of
+//     8 warps at the Act3D shape, so every SM holds blocks from the first
+//     wave to the last.  Unique ascending indices put every hit of a tile
+//     [p0, p0 + rows) in one contiguous window [j_lo, j_hi) of idx[b],
+//     found by two warps at once, one bound each, in a 32-way search (each
+//     round one load per lane and a ballot: 3 rounds for K = 3072, where a
+//     single thread's binary search waits on 12 dependent loads); the
+//     other warps zero the slot table meanwhile.  The window's j + 1 go
+//     into a slot table of kTile ints in shared memory.  No (B, P) buffer.
+//   * the chunked function: p_tile and n_chunks split P into tiles and
+//     chunks on the TPU (a sequential grid over VMEM-resident tiles, to
+//     amortise the TPU's grid-step cost) and never change the result.  The
+//     card has no such cost, so its grid does not follow them: the wrapper
+//     (kernels/gather.py::scatter_rows_chunked) checks them as JAX's
+//     contract and launches the sorted entry, grid (ceil(P / kTile), B),
+//     where JAX's grid of (n_chunks, B) blocks gave 64 blocks for 132 SMs
+//     at its defaults.  Rows >= P are never written.
 //   * unsorted entry: JAX's slot map (act3d_tpu/ops/geometry.py:93-105):
 //     a first kernel writes inv[b, idx[b, j]] = j + 1 into an int32 (B, P)
 //     map zeroed by cudaMemsetAsync; one block per tile of kTile rows reads
 //     its slots from inv.
 //   * stores: a tile is one contiguous span of rows * C floats of out;
 //     consecutive threads write consecutive 16-byte float4s (C % 4 == 0 and
-//     16-byte aligned rows, e.g. C = 60 is 15 float4s), else floats.
+//     16-byte aligned rows, e.g. C = 60 is 15 float4s), else floats.  One
+//     writer serves every entry: each thread loads kUnroll g-row elements
+//     before it stores any, so it keeps kUnroll loads and stores in flight.
 //   * an index outside a tile's range never lands in it, so indices that
 //     break the precondition give a wrong result but no stray write.
 
@@ -61,48 +63,78 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 128;  // output rows per block
-constexpr int kMaxChunkedTile = 57344;  // p_tile ints in 224 KB of shared memory
+constexpr int kUnroll = 4;  // g-row loads in flight per thread before its stores
 
-__device__ __forceinline__ int lower_bound(const int64_t* a, int n, int64_t v) {
-  int lo = 0;
-  int hi = n;
+// The first j in [0, n) with a[j] >= v (n if none), for ascending a, found
+// by the 32 lanes of one warp together: each round every lane tests one of
+// 32 evenly spaced probes and a ballot counts those below v, which cuts
+// the span 32-fold.  Every lane returns the same value.
+__device__ __forceinline__ int warp_lower_bound(const int64_t* a, int n, int64_t v, int lane) {
+  int lo = 0;  // a[j] < v for every j < lo
+  int hi = n;  // a[j] >= v for every j in [hi, n)
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+    const int step = (hi - lo + 31) >> 5;
+    const int j = lo + (lane + 1) * step - 1;
+    const bool below = j < hi && a[j] < v;
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    hi = min(hi, lo + (c + 1) * step - 1);  // probe c is not below v
+    lo += c * step;
   }
   return lo;
 }
 
 // Writes `rows` rows of C floats at out_t, one contiguous span: row r is g
 // row slot[r] - 1 (g_b's rows g_sj floats apart), or zeros where slot[r] is
-// 0.  Consecutive threads store consecutive float4s when VEC.
+// 0.  Consecutive threads take consecutive elements (VEC false: floats;
+// true: float4s), and each thread loads kUnroll of them before it stores
+// any.
 template <bool VEC>
-__device__ __forceinline__ void write_tile(const int* slot, const float* __restrict__ g_b,
+__device__ __forceinline__ void write_rows(const int* slot, const float* __restrict__ g_b,
                                            int64_t g_sj, float* __restrict__ out_t, int rows,
                                            int C) {
-  if (VEC) {
-    const int c4 = C / 4;
-    const int n = rows * c4;
-    float4* out4 = reinterpret_cast<float4*>(out_t);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int r = i / c4;
-      const int c = i - r * c4;
-      const int s = slot[r];
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s) val = reinterpret_cast<const float4*>(g_b + (size_t)(s - 1) * g_sj)[c];
-      out4[i] = val;
-    }
-  } else {
+  if (!VEC) {
     const int n = rows * C;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int r = i / C;
-      const int c = i - r * C;
-      const int s = slot[r];
-      out_t[i] = s ? g_b[(size_t)(s - 1) * g_sj + c] : 0.f;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * kThreads) {
+      float val[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        val[u] = 0.f;
+        if (i < n) {
+          const int r = i / C;
+          const int s = slot[r];
+          if (s) val[u] = __ldg(g_b + (size_t)(s - 1) * g_sj + (i - r * C));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < n) out_t[i] = val[u];
+      }
+    }
+    return;
+  }
+  const int c4 = C >> 2;
+  const int n = rows * c4;
+  const float4* g4 = reinterpret_cast<const float4*>(g_b);
+  const int64_t g_sj4 = g_sj >> 2;
+  float4* out4 = reinterpret_cast<float4*>(out_t);
+  for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * kThreads) {
+    float4 val[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      val[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n) {
+        const int r = i / c4;
+        const int s = slot[r];
+        if (s) val[u] = __ldg(g4 + (size_t)(s - 1) * g_sj4 + (i - r * c4));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) out4[i] = val[u];
     }
   }
 }
@@ -116,6 +148,8 @@ slot_map_kernel(const int64_t* __restrict__ idx, int* __restrict__ inv, int K, i
   if (p >= 0 && p < P) inv[(size_t)b * P + p] = j + 1;
 }
 
+// The unsorted body: block (x, b) writes rows [x * kTile, x * kTile + rows)
+// of out[b] from the slot map inv.
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ inv,
@@ -127,57 +161,40 @@ scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ inv,
   const int* inv_t = inv + (size_t)b * P + p0;
   for (int r = threadIdx.x; r < kTile; r += kThreads) slot_s[r] = r < rows ? inv_t[r] : 0;
   __syncthreads();
-  write_tile<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
+  write_rows<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
 }
 
+// The sorted body: block (x, b) writes the same rows, its slots found from
+// the ascending idx[b].
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_chunked_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx,
-                            float* __restrict__ out, int K, int64_t P, int C, int64_t g_sb,
-                            int64_t g_sj, int p_tile, int64_t n_inner) {
-  extern __shared__ int chunk_slots[];  // [p_tile]
+scatter_sorted_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx,
+                      float* __restrict__ out, int K, int64_t P, int C, int64_t g_sb,
+                      int64_t g_sj) {
+  __shared__ int slot_s[kTile];  // j + 1 of the g row that lands on tile row r; 0 = none
   __shared__ int window[2];
   const int b = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * kTile;
+  const int rows = (int)min((int64_t)kTile, P - p0);
   const int64_t* idx_b = idx + (size_t)b * K;
-  const float* g_b = g + (size_t)b * g_sb;
-  for (int64_t t = (int64_t)blockIdx.x * n_inner; t < (int64_t)(blockIdx.x + 1) * n_inner;
-       ++t) {
-    const int64_t p0 = t * p_tile;
-    if (p0 >= P) break;  // the padded tail of the last chunks
-    const int rows = (int)min((int64_t)p_tile, P - p0);
-    __syncthreads();  // the previous tile's slots and window are no longer read
-    if (threadIdx.x == 0) window[0] = lower_bound(idx_b, K, p0);
-    if (threadIdx.x == 32) window[1] = lower_bound(idx_b, K, p0 + p_tile);
-    for (int r = threadIdx.x; r < rows; r += kThreads) chunk_slots[r] = 0;
-    __syncthreads();
-    for (int j = window[0] + threadIdx.x; j < window[1]; j += kThreads) {
-      const int64_t r = idx_b[j] - p0;
-      if (r >= 0 && r < rows) chunk_slots[r] = j + 1;
-    }
-    __syncthreads();
-    write_tile<VEC>(chunk_slots, g_b, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {  // warp 0 finds j_lo, warp 1 j_hi
+    const int lane = threadIdx.x & 31;
+    const int w = warp_lower_bound(idx_b, K, warp ? p0 + rows : p0, lane);
+    if (lane == 0) window[warp] = w;
+  } else {
+    for (int r = threadIdx.x - 64; r < kTile; r += kThreads - 64) slot_s[r] = 0;
   }
+  __syncthreads();
+  for (int j = window[0] + threadIdx.x; j < window[1]; j += kThreads) {
+    const int64_t r = idx_b[j] - p0;
+    if (r >= 0 && r < rows) slot_s[r] = j + 1;
+  }
+  __syncthreads();
+  write_rows<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
 }
 
-// Launches the sorted-index body on a (n_chunks, B) grid, each block
-// walking n_inner = ceil(P / (p_tile * n_chunks)) tiles of p_tile rows.
-int launch_chunked(const void* g, const void* idx, void* out, int B, int K, int64_t P, int C,
-                   int64_t g_sb, int64_t g_sj, int vec, int p_tile, int n_chunks,
-                   cudaStream_t stream) {
-  const int64_t per_chunk = (int64_t)p_tile * n_chunks;
-  const int64_t n_inner = (P + per_chunk - 1) / per_chunk;  // tiles per chunk
-  const size_t smem = (size_t)p_tile * sizeof(int);
-  auto kernel = vec ? scatter_rows_chunked_kernel<true> : scatter_rows_chunked_kernel<false>;
-  if (smem > 48 * 1024) {  // above the default limit only by opt-in
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(n_chunks, B), kThreads, smem, stream>>>(
-      static_cast<const float*>(g), static_cast<const int64_t*>(idx), static_cast<float*>(out),
-      K, P, C, g_sb, g_sj, p_tile, n_inner);
-  return (int)cudaGetLastError();
-}
+dim3 tile_grid(int B, int64_t P) { return dim3((unsigned)((P + kTile - 1) / kTile), B); }
 
 bool bad_shape(int B, int K, int64_t P, int C) {
   return B < 1 || B > 65535 || K < 1 || P < 1 || C < 1 ||
@@ -197,8 +214,11 @@ extern "C" int act3d_scatter_rows_sorted_f32(const void* g, const void* idx, voi
                                              int64_t g_sb, int64_t g_sj, int vec,
                                              void* stream) {
   if (bad_shape(B, K, P, C)) return (int)cudaErrorInvalidValue;
-  return launch_chunked(g, idx, out, B, K, P, C, g_sb, g_sj, vec, kTile,
-                        (int)((P + kTile - 1) / kTile), static_cast<cudaStream_t>(stream));
+  auto kernel = vec ? scatter_sorted_kernel<true> : scatter_sorted_kernel<false>;
+  kernel<<<tile_grid(B, P), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const int64_t*>(idx), static_cast<float*>(out),
+      K, P, C, g_sb, g_sj);
+  return (int)cudaGetLastError();
 }
 
 // The unsorted entry also takes inv, an int32 (B, P) scratch buffer that it
@@ -216,30 +236,18 @@ extern "C" int act3d_scatter_rows_f32(const void* g, const void* idx, void* inv,
                                                    K, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((P + kTile - 1) / kTile), B);
-  if (vec) {
-    scatter_rows_kernel<true><<<grid, kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
-                                                          static_cast<float*>(out), P, C, g_sb,
-                                                          g_sj);
-  } else {
-    scatter_rows_kernel<false><<<grid, kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
-                                                           static_cast<float*>(out), P, C, g_sb,
-                                                           g_sj);
-  }
+  auto kernel = vec ? scatter_rows_kernel<true> : scatter_rows_kernel<false>;
+  kernel<<<tile_grid(B, P), kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
+                                              static_cast<float*>(out), P, C, g_sb, g_sj);
   return (int)cudaGetLastError();
 }
 
-// The chunked entry: the sorted entry's arguments plus p_tile (output rows
-// per tile, at most kMaxChunkedTile) and n_chunks (blocks per batch row).
-// P is split as the TPU kernel splits it: padded to a multiple of
-// p_tile * n_chunks, each chunk owning n_tiles / n_chunks consecutive tiles.
-extern "C" int act3d_scatter_rows_chunked_f32(const void* g, const void* idx, void* out,
-                                              int B, int K, int64_t P, int C, int64_t g_sb,
-                                              int64_t g_sj, int vec, int p_tile, int n_chunks,
-                                              void* stream) {
-  if (bad_shape(B, K, P, C) || p_tile < 1 || p_tile > kMaxChunkedTile || n_chunks < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch_chunked(g, idx, out, B, K, P, C, g_sb, g_sj, vec, p_tile, n_chunks,
-                        static_cast<cudaStream_t>(stream));
+// The grid and block of the row-writing kernel of every entry for (B, P):
+// shape[0..3] = grid x, grid y, threads per block, output rows per block.
+extern "C" void act3d_scatter_rows_launch_shape(int B, int64_t P, int64_t* shape) {
+  const dim3 grid = tile_grid(B, P);
+  shape[0] = grid.x;
+  shape[1] = grid.y;
+  shape[2] = kThreads;
+  shape[3] = kTile;
 }

@@ -1,8 +1,29 @@
-"""Device selection for the port's entry points."""
+"""Device selection and float32 precision policy for the port's entry points."""
 
 from __future__ import annotations
 
 import torch
+
+
+def pin_float32() -> None:
+    """The port's precision policy on the card: float32 matmuls and cuDNN
+    convolutions in full float32, never TF32 (about 10 mantissa bits), as
+    the JAX package computes on the CPU.  PyTorch's default runs cuDNN
+    convolutions in TF32, which would put the frozen CLIP trunk and the
+    FPN at TF32 while every card-vs-CPU check holds float32.
+
+    Set through PyTorch's ``fp32_precision`` API only: mixing it with the
+    legacy ``allow_tf32`` flags makes a later read of those raise, so the
+    port reads the policy back with :func:`float32_precision`."""
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+
+
+def float32_precision() -> dict:
+    """The float32 precision of matmuls and cuDNN convolutions, read through
+    the API :func:`pin_float32` sets ("ieee" = full float32)."""
+    return {"matmul": torch.backends.cuda.matmul.fp32_precision,
+            "conv": torch.backends.cudnn.conv.fp32_precision}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -10,7 +31,9 @@ def resolve_device(device="cuda") -> torch.device:
 
     The default is the card.  Without one, asking for ``"cuda"`` raises
     instead of drifting to the CPU; the CPU is used only when the caller
-    names it.
+    names it.  A CUDA device gets the float32 policy of
+    :func:`pin_float32`; the CPU computes in float32 already, and its
+    flags are left alone.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -20,4 +43,6 @@ def resolve_device(device="cuda") -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        pin_float32()
     return dev

@@ -24,8 +24,10 @@ autograd.
 
 :func:`attention_core` replaces the single-head-layout TPU kernel
 ``_attention_core_fwd_impl`` ((B·H, L, D) tensors, an optional (B·H, S)
-mask, no stats) with ``csrc/attention_core.cu``; its backward is the TPU
-kernel's jnp VJP in torch ops.  As in JAX, no model path calls it.
+mask, no stats) with the forward kernel at B = B·H, H = 1, its stats
+skipped, launched with the fused sites' plan (:func:`fwd_plan` at one
+head, the same blocks as a (B, L, H·D) call); its backward is the TPU kernel's jnp VJP in
+torch ops.  As in JAX, no model path calls it.
 """
 
 from __future__ import annotations
@@ -55,13 +57,8 @@ __all__ = [
 
 MAX_HEAD_DIM = 64
 MASKED_SCORE = -1e30
-_THREADS = 128  # threads of one attention_core block (kThreads)
-# blocks wanted per attention_core launch before rows are split across
-# more threads: two per SM of a 132-SM H100
-_TARGET_BLOCKS = 264
 _FWD_SOURCE = "fused_mha_fwd.cu"
 _BWD_SOURCE = "fused_mha_bwd.cu"
-_CORE_SOURCE = "attention_core.cu"
 
 # ---------------------------------------------------------------- keep mask
 _M32 = 0xFFFFFFFF
@@ -193,15 +190,6 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
 
 
 # ------------------------------------------------------------------ wrappers
-def _threads_per_row(b: int, l: int, h: int) -> int:
-    """Threads sharing one query row of ``attention_core``'s launch: split
-    rows until the launch has enough blocks to fill the card."""
-    tpr = 1
-    while tpr < 32 and b * h * -(-l // (_THREADS // tpr)) < _TARGET_BLOCKS:
-        tpr *= 2
-    return tpr
-
-
 # Launch plans of the two fused-MHA kernels.  The constants below were
 # chosen by same-call A/Bs on the card (scripts/ab_fused_mha_plans.py; the
 # numbers are in PERF.md): blocks wanted per launch before keys (forward) or rows
@@ -398,9 +386,10 @@ def _workspace(floats, device):
     return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
-def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None):
-    """One forward kernel call; ``plan`` overrides :func:`fwd_plan` (the
-    plan A/B script uses it)."""
+def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None,
+             with_stats: bool = True):
+    """One call of the forward kernel, counted by its caller: (out, stats),
+    stats None (and never written) without ``with_stats``."""
     b, l, e = q.shape
     s = k.shape[1]
     d = e // num_heads
@@ -408,19 +397,28 @@ def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = 
     plan = plan or fwd_plan(b, l, s, num_heads, d)
     fn = _fwd_fn()
     out = torch.empty_like(q)
-    stats = torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
+             if with_stats else None)
     work = _workspace(plan.workspace_floats, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            out.data_ptr(), stats.data_ptr(), None if work is None else work.data_ptr(),
+            out.data_ptr(), None if stats is None else stats.data_ptr(),
+            None if work is None else work.data_ptr(),
             b, l, s, num_heads, d, plan.warps, plan.chunk, plan.nsplit,
             *_dropout_args(rate, seed), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_fwd launch failed: CUDA error {rc}")
+    return out, stats
+
+
+def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None):
+    """One forward kernel call; ``plan`` overrides :func:`fwd_plan` (the
+    plan A/B script uses it)."""
+    out, stats = _run_fwd(q, k, v, num_heads, mask, rate, seed, plan)
     fused_mha_forward.launches += 1
     return out, stats
 
@@ -475,8 +473,9 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
 
 # --------------------------------------------------- single-head-layout core
 def attention_core_reference(q, k, v, mask=None):
-    """Plain PyTorch version of ``csrc/attention_core.cu``: softmax(q kᵀ) v
-    per leading index of (BH, L, D) tensors, masked keys at -1e30."""
+    """Plain PyTorch version of :func:`attention_core_forward`'s kernel:
+    softmax(q kᵀ) v per leading index of (BH, L, D) tensors, masked keys at
+    -1e30."""
     scores = q.float() @ k.float().transpose(-1, -2)
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], MASKED_SCORE)
@@ -513,34 +512,22 @@ def _check_core(q, k, v, mask):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _core_fn():
-    from . import _build
-
-    fn = _build.load(_CORE_SOURCE).act3d_attention_core_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def attention_core_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q kᵀ) v on (BH, L, D) tensors, no autograd: the plain version
-    on a CPU tensor, the kernel on a CUDA one."""
+    on a CPU tensor, the forward kernel at H = 1 without stats on a CUDA
+    one."""
     _check_core(q, k, v, mask)
     if q.device.type == "cpu":
         return attention_core_reference(q, k, v, mask)
+    return _launch_core(q, k, v, mask)
+
+
+def _launch_core(q, k, v, mask):
+    """One call of the forward kernel as the core: one head, no stats."""
     bh, l, d = q.shape
-    _check_cuda(mask, d, q=q, k=k, v=v)
-    fn = _core_fn()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if mask is None else mask.data_ptr(), out.data_ptr(),
-                bh, l, k.shape[1], d, _threads_per_row(bh, l, 1), stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_core launch failed: CUDA error {rc}")
+    out, _ = _run_fwd(q, k, v, 1, mask, 0.0, None, fwd_plan(bh, l, k.shape[1], 1, d),
+                      with_stats=False)
     attention_core.launches += 1
     return out
 

@@ -12,8 +12,10 @@ which, the indices being unique, is one copy of a g row or zeros per output
 row: exact, with no accumulation.  :func:`scatter_rows_sorted` and
 :func:`scatter_rows_chunked` also need the indices ascending per row
 (Act3D sorts its fine-context picks); that is the caller's promise, as in
-JAX, and is not checked on the hot path.  The chunked entry has no model
-path, in JAX as here.
+JAX, and is not checked on the hot path.  The chunked function has no
+model path, in JAX as here; its ``p_tile`` and ``n_chunks`` split the work
+on the TPU and change neither the result nor, on the card, the grid: it
+launches the sorted entry (:func:`launch_shape` gives the grid).
 
 Every wrapper sends a CPU tensor to :func:`scatter_rows_reference` (the
 slot map of ``act3d_tpu/ops/geometry.py::_slot_map_bwd`` in torch ops) and
@@ -31,7 +33,9 @@ __all__ = ["scatter_rows", "scatter_rows_chunked", "scatter_rows_reference",
            "scatter_rows_sorted"]
 
 _SOURCE = "scatter_rows.cu"
-_MAX_CHUNKED_TILE = 57344  # kMaxChunkedTile: p_tile ints in a block's shared memory
+# the largest p_tile JAX's chunked kernel takes (its shared-memory slot table
+# of p_tile ints), kept as the chunked function's contract
+_MAX_CHUNKED_TILE = 57344
 
 
 def scatter_rows_reference(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Tensor:
@@ -59,24 +63,35 @@ def _check(g, idx, out_rows):
         raise ValueError(f"unsupported device {g.device}")
 
 
-def _fn(name: str, n_pointers: int, n_tiling: int = 0):
+def _fn(name: str, n_pointers: int):
     """The C entry ``name``: pointers, then (B, K, P, C, g's two strides,
-    vec), then ``n_tiling`` int tiling arguments, then the stream."""
+    vec), then the stream."""
     from . import _build
 
     fn = getattr(_build.load(_SOURCE), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_pointers
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-                       + [ctypes.c_int] * n_tiling + [ctypes.c_void_p])
+                          ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(g, idx, out_rows, entry, tiling=()):
-    """Launch one entry ("sorted", "unsorted" or "chunked" with its
-    (p_tile, n_chunks)) on CUDA tensors."""
+def launch_shape(b: int, out_rows: int) -> dict:
+    """The grid and block every entry's row-writing kernel launches for
+    (B, P), as the C side computes them (builds the library)."""
+    from . import _build
+
+    fn = _build.load(_SOURCE).act3d_scatter_rows_launch_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = None
+    shape = (ctypes.c_int64 * 4)()
+    fn(b, out_rows, shape)
+    return dict(x=shape[0], y=shape[1], threads=shape[2], rows_per_block=shape[3])
+
+
+def _launch(g, idx, out_rows, entry):
+    """Launch the "sorted" or the "unsorted" entry on CUDA tensors."""
     if g.dtype != torch.float32:
         raise NotImplementedError(f"g is {g.dtype}: the kernel takes float32")
     if g.stride(2) != 1:
@@ -90,12 +105,9 @@ def _launch(g, idx, out_rows, entry, tiling=()):
     out = torch.empty((b, out_rows, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        shape = (b, k, out_rows, c, g.stride(0), g.stride(1), vec, *tiling, stream)
+        shape = (b, k, out_rows, c, g.stride(0), g.stride(1), vec, stream)
         if entry == "sorted":
             rc = _fn("act3d_scatter_rows_sorted_f32", 3)(
-                g.data_ptr(), idx.data_ptr(), out.data_ptr(), *shape)
-        elif entry == "chunked":
-            rc = _fn("act3d_scatter_rows_chunked_f32", 3, len(tiling))(
                 g.data_ptr(), idx.data_ptr(), out.data_ptr(), *shape)
         else:
             inv = torch.empty((b, out_rows), dtype=torch.int32, device=g.device)
@@ -137,15 +149,16 @@ def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
     """(B, P, C) adjoint of a row gather at unique, ascending idx (B, K): the
     function of :func:`scatter_rows_sorted`, with JAX's signature and
     defaults.  ``p_tile`` (output rows per tile, at most 57344) and
-    ``n_chunks`` (blocks per batch row, each walking its run of tiles) set
-    only how the work is split, never the result."""
+    ``n_chunks`` (TPU grid steps per batch row, each walking its run of
+    tiles) set only how the TPU splits the work, never the result: on the
+    card they are checked and the sorted entry's kernel launches."""
     _check(g, idx, out_rows)
     if not 1 <= p_tile <= _MAX_CHUNKED_TILE or n_chunks < 1:
         raise ValueError(f"p_tile {p_tile} outside [1, {_MAX_CHUNKED_TILE}] or "
                          f"n_chunks {n_chunks} < 1")
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
-    out = _launch(g, idx, out_rows, "chunked", (p_tile, n_chunks))
+    out = _launch(g, idx, out_rows, "sorted")
     scatter_rows_chunked.launches += 1
     return out
 

@@ -5,8 +5,11 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure raises and exits non-zero):
-  1. device: torch/CUDA versions, the card's name and power limit; TF32
-     is switched off for matmuls and convolutions.
+  1. device: torch/CUDA versions, the card's name and power limit; the
+     port's float32 policy (act3d_tpu_torch.device.pin_float32, applied by
+     resolve_device as at every entry point: matmuls and cuDNN
+     convolutions in float32, no TF32), read back through the same
+     fp32_precision API.
   2. build: nvcc builds every CUDA source of the port for sm_90a (one nvcc
      per source, all started together); prints each kernel's ptxas report
      (registers, spills).
@@ -66,17 +69,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      fused_mha_bwd + 2 scatter_rows_sorted launches per step; prints step
      times and peak memory; then one Trainer.evaluate on a batch of 4
      (10000 ghost points).
- 12. attention_core: the single-head-layout kernel (no model path, as in
-     JAX) against its plain version at every attention site of both
-     training steps flattened to (B*H, L, 15), plus a padded mask and a
-     fully masked row, atol 2e-5 / rtol 1e-4; its gradient through
-     AttentionCore on the card against the CPU; device times beside the
-     bound, the plain version and SDPA (timing yardstick only).
+ 12. attention_core: the single-head-layout core (no model path, as in
+     JAX), the fused forward kernel at H = 1 without stats, against its
+     plain version at every attention site of both training steps
+     flattened to (B*H, L, 15), plus a padded mask and a fully masked row,
+     atol 2e-5 / rtol 1e-4, a repeated call bit-identical; its gradient
+     through AttentionCore on the card against the CPU; device times
+     beside both bounds (float32 and tensor-core), the plain version and
+     SDPA (timing yardstick only), and the launch plan's device kernels
+     per call and workspace bytes.
  13. scatter_rows_chunked: the chunked row-scatter entry (no model path)
      bit-exact against its plain version at the Act3D fine-level shape for
      three layouts and at K = 3000, P = 49000 (padding), at JAX's defaults
-     (p_tile 256, 4 chunks) and at 17 chunks (two blocks per SM); device
-     times beside scatter_rows_sorted, the plain version and scatter_.
+     (p_tile 256, 4 chunks), at 17 chunks and at p_tile 1, 100 and 57344;
+     device times of its grid (the sorted entry's, as the C side reports
+     it, whatever p_tile and n_chunks are) beside scatter_rows_sorted, the
+     plain version and scatter_.
  14. cli_keypose: a fixture tree (pick_and_lift, 3 cameras at 256^2, 5-frame
      episodes, instructions) in a temporary directory, then
      act3d_tpu_torch.train.main_keypose.main with scripts/train_act3d.sh's
@@ -114,8 +122,10 @@ import torch.nn.functional as F
 
 from act3d_tpu_torch.data.feeder import DeviceFeeder
 from act3d_tpu_torch.data.fixtures import make_dataset_tree, make_instructions
+from act3d_tpu_torch.device import float32_precision, resolve_device
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.kernels import _build
+from act3d_tpu_torch.kernels import gather as gather_kernels
 from act3d_tpu_torch.kernels.attention import (
     attention_core,
     attention_core_forward,
@@ -396,12 +406,22 @@ def plan_row(plan):
                 plan=plan._asdict())
 
 
-def bound_core(l, s, d, bh, masked):
+def core_work(l, s, d, bh, masked):
     """attention_core reads q, k, v (and the (BH, S) bool mask) and writes
     out, each byte once; it keeps no softmax stats."""
     flops = 4.0 * bh * l * s * d
     nbytes = 4.0 * (2 * bh * l * d + 2 * bh * s * d) + (bh * s if masked else 0)
+    return flops, nbytes
+
+
+def bound_core(l, s, d, bh, masked):
+    flops, nbytes = core_work(l, s, d, bh, masked)
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def core_tc_bound(l, s, d, bh, masked, sm_mhz):
+    flops, nbytes = core_work(l, s, d, bh, masked)
+    return tc_bound(flops, bh * l * s, nbytes, sm_mhz)
 
 
 def _bound_row(t_ops, t_bytes):
@@ -702,12 +722,13 @@ def attention_core_sites():
     return sites
 
 
-def phase_attention_core(dev, card):
-    """The attention_core kernel against attention_core_reference at every
-    flattened training site (atol 2e-5 / rtol 1e-4), its gradient through
-    AttentionCore on the card against the CPU at a small size, and device
-    times beside the bound (bound_core), the plain version and SDPA (timing
-    yardstick only)."""
+def phase_attention_core(dev, card, sm_mhz):
+    """attention_core (the fused forward kernel at H = 1, no stats) against
+    attention_core_reference at every flattened training site (atol 2e-5 /
+    rtol 1e-4, a repeat bit-identical), its gradient through AttentionCore
+    on the card against the CPU at a small size, and device times beside
+    both bounds (bound_core, core_tc_bound), the plain version and SDPA
+    (timing yardstick only), with the launch plan (fwd_plan at one head)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     side = torch.cuda.Stream()
     d = ACT3D_CFG["embedding_dim"] // ACT3D_CFG["num_attn_heads"]
@@ -718,11 +739,15 @@ def phase_attention_core(dev, card):
         mask = None if b_mask is None else b_mask.repeat_interleave(heads, dim=0).contiguous()
         q = torch.randn(bh, l, d, generator=gen, device=dev) * d ** -0.5
         k, v = (torch.randn(bh, s, d, generator=gen, device=dev) for _ in range(2))
+        before = attention_core.launches, fused_mha_forward.launches
         out = attention_core_forward(q, k, v, mask)
         torch.cuda.synchronize()
+        assert (attention_core.launches, fused_mha_forward.launches) == (
+            before[0] + 1, before[1]), site
         ref = attention_core_reference(q, k, v, mask)
         err = _max_errs([(out, ref)])
         torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+        assert torch.equal(out, attention_core_forward(q, k, v, mask)), site
         if kind == "full":  # rows 1*heads .. 2*heads-1 of batch row 1: uniform weights
             torch.testing.assert_close(out[heads], v[heads].mean(dim=0).expand(l, d),
                                        atol=ATOL, rtol=RTOL)
@@ -734,12 +759,24 @@ def phase_attention_core(dev, card):
             q[:, None], k[:, None], v[:, None], attn_mask=attn_mask, scale=1.0), iters, side)
         row = dict(site=site, BH=bh, L=l, S=s, D=d, mask=kind, per_step=per_step,
                    max_abs_err=err[0], max_rel_err=err[1], ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, **_bound_row(*bound_core(l, s, d, bh, kind)))
+                   library_ms=library_ms, **_bound_row(*bound_core(l, s, d, bh, kind)),
+                   **core_tc_bound(l, s, d, bh, kind, sm_mhz),
+                   **plan_row(fwd_plan(bh, l, s, 1, d)))
         rows.append(row)
         print(f"attention_core {site:24s} BH={bh} L={l} S={s} D={d} mask={kind}: max_abs "
-              f"{err[0]:.3e} max_rel {err[1]:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, sdpa {library_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}) | {card}", flush=True)
+              f"{err[0]:.3e} max_rel {err[1]:.3e}, repeat bit-identical | kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, f32 bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), tensor-core bound "
+              f"{row['tc_bound_ms']:.5f} ms ({row['tc_bound_by']}) | "
+              f"{row['kernels_per_call']} device kernel(s), workspace "
+              f"{row['workspace_bytes']} bytes | {card}", flush=True)
+    live = [r for r in rows if r["per_step"]]
+    print(f"attention_core per step pair: {sum(r['per_step'] for r in live)} wrapper calls, "
+          f"{sum(r['per_step'] * r['kernels_per_call'] for r in live)} device kernels; "
+          f"{sum(r['per_step'] * r['ms'] for r in live):.4f} ms, tensor-core bound "
+          f"{sum(r['per_step'] * r['tc_bound_ms'] for r in live):.4f} ms, f32 bound "
+          f"{sum(r['per_step'] * r['bound_ms'] for r in live):.4f} ms; largest workspace "
+          f"{max(r['workspace_bytes'] for r in live)} bytes | {card}", flush=True)
 
     # gradient through AttentionCore on the card against the CPU
     small = [torch.randn(3, n, d, generator=gen, device=dev) * scale
@@ -764,27 +801,33 @@ def phase_attention_core(dev, card):
 def phase_chunked(dev, card):
     """scatter_rows_chunked against its plain version, bit for bit, at the
     Act3D fine-level shape for three index layouts and at a K that is not a
-    multiple of 128 with a P that needs padding; device times at JAX's
-    defaults and at a chunk count that gives two blocks per SM, beside
-    scatter_rows_sorted, the plain version and a zero-filled scatter_."""
+    multiple of 128 with a P that needs padding, at several p_tile and
+    n_chunks; device times at JAX's defaults and at a chunk count that gave
+    two blocks per SM on JAX's grid, beside scatter_rows_sorted, the plain
+    version and a zero-filled scatter_."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     side = torch.cuda.Stream()
     b, k, p, c = GATHER_B, GATHER_K, GATHER_P, GATHER_C
-    filled = -(-2 * 132 // b)  # chunks per batch row for >= 2 blocks per SM
+    filled = -(-2 * 132 // b)  # chunks per batch row for >= 2 blocks per SM on JAX's grid
     cases = [("topk_nearest", k, p), ("uniform", k, p), ("edges", k, p),
              ("uniform", 3000, 49000)]
+    tilings = [CHUNKED_DEFAULTS, (CHUNKED_DEFAULTS[0], filled)]
     row = None
     for layout, kk, pp in cases:
         idx = gather_indices(layout, gen, dev, b, kk, pp)
         g = torch.randn(b, kk, c, generator=gen, device=dev)
         want = scatter_rows_reference(g, idx, pp)
-        for n_chunks in (CHUNKED_DEFAULTS[1], filled):
-            got = scatter_rows_chunked(g, idx, pp, CHUNKED_DEFAULTS[0], n_chunks)
+        extra = [(1, 3), (100, 5), (57344, 1)] if layout == "topk_nearest" else []
+        for p_tile, n_chunks in tilings + extra:
+            got = scatter_rows_chunked(g, idx, pp, p_tile, n_chunks)
             torch.cuda.synchronize()
             exact = torch.equal(got, want)
-            print(f"chunked kernel {layout:12s} B={b} K={kk} P={pp} C={c} p_tile="
-                  f"{CHUNKED_DEFAULTS[0]} n_chunks={n_chunks}: exact {exact}", flush=True)
-            assert exact, (layout, kk, pp, n_chunks)
+            print(f"chunked kernel {layout:12s} B={b} K={kk} P={pp} C={c} p_tile={p_tile} "
+                  f"n_chunks={n_chunks}: exact {exact}", flush=True)
+            assert exact, (layout, kk, pp, p_tile, n_chunks)
+        got = scatter_rows_chunked(g, idx, pp, *CHUNKED_DEFAULTS)
+        assert torch.equal(got, want) and torch.equal(
+            got, scatter_rows_chunked(g, idx, pp, *CHUNKED_DEFAULTS)), layout
         if layout != "topk_nearest":
             continue
         ms = device_ms(lambda: scatter_rows_chunked(g, idx, p, *CHUNKED_DEFAULTS), 20, side)
@@ -794,16 +837,21 @@ def phase_chunked(dev, card):
         plain_ms = device_ms(lambda: scatter_rows_reference(g, idx, p), 20, side)
         library_ms = device_ms(lambda: g.new_zeros(b, p, c).scatter_(
             1, idx[..., None].expand(-1, -1, c), g), 20, side)
+        grid = gather_kernels.launch_shape(b, p)
+        blocks = grid["x"] * grid["y"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         row = dict(site=f"act3d.fine_gather.{layout}", B=b, K=k, P=p, C=c,
                    p_tile=CHUNKED_DEFAULTS[0], n_chunks=CHUNKED_DEFAULTS[1], max_abs_err=0.0,
                    ms=ms, n_chunks_filled=filled, ms_filled=filled_ms,
                    scatter_rows_sorted_ms=sorted_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   grid=dict(grid, blocks=blocks, blocks_per_sm=blocks / sms),
                    **_bound_row(*bound_gather(b, k, p, c)))
-        print(f"chunked kernel {layout:12s} {ms:.4f} ms at n_chunks={CHUNKED_DEFAULTS[1]} "
-              f"({b * CHUNKED_DEFAULTS[1]} blocks), {filled_ms:.4f} ms at n_chunks={filled} "
-              f"({b * filled} blocks); scatter_rows_sorted {sorted_ms:.4f}, plain "
-              f"{plain_ms:.4f}, scatter_ {library_ms:.4f}, bound {row['bound_ms']:.5f} ms "
-              f"(bytes) | {card}", flush=True)
+        print(f"chunked kernel {layout:12s} {ms:.4f} ms at n_chunks={CHUNKED_DEFAULTS[1]}, "
+              f"{filled_ms:.4f} ms at n_chunks={filled} (grid {grid['x']} x {grid['y']} = "
+              f"{blocks} blocks of {grid['threads']} threads, {grid['rows_per_block']} rows "
+              f"each, either way); scatter_rows_sorted {sorted_ms:.4f}, plain {plain_ms:.4f}, "
+              f"scatter_ {library_ms:.4f}, bound {row['bound_ms']:.5f} ms (bytes) | {card}",
+              flush=True)
     return row
 
 
@@ -1206,17 +1254,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device("cuda")  # the port's float32 policy, as every entry point sets it
     card = nvidia_smi()
     sm_mhz = sm_clock_mhz()
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(card, flush=True)
     print(f"max SM clock (nvidia-smi clocks.max.sm): {sm_mhz:.0f} MHz", flush=True)
-    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    precision = float32_precision()
+    print(f"tf32: matmul {precision['matmul']} cudnn conv {precision['conv']} (fp32_precision "
+          f"as the port set it; ieee = float32, no TF32)", flush=True)
+    assert precision == {"matmul": "ieee", "conv": "ieee"}, precision
 
     t0 = time.perf_counter()
     paths = _build.build()
@@ -1251,7 +1299,7 @@ def main() -> int:
         SEED + 2, sm_mhz)
     print_plans(rows, train_fwd_rows, train_bwd_rows, kp_fwd_rows, kp_bwd_rows)
     gather_rows = phase_gather_kernels(dev, card)
-    core_rows = phase_attention_core(dev, card)
+    core_rows = phase_attention_core(dev, card, sm_mhz)
     chunked_row = phase_chunked(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
@@ -1341,17 +1389,19 @@ def main() -> int:
             "card": card,
         })
     kernels[2].update(keypose_train_steps=kp_steps, **kp_memory)
-    core = total({k: per_unit(core_rows, (k, "per_step")) for k in keys})
+    core = total({k: per_unit(core_rows, (k, "per_step")) for k in mha_keys})
     kernels.append({
         "name": "attention_core", "route": "cuda",
-        "source": "act3d_tpu_torch/csrc/attention_core.cu",
+        "source": "act3d_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:823",
         "launches": launches["attention_core"],
         "max_abs_err": max(r["max_abs_err"] for r in core_rows),
-        **{k: core[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
+        **{k: core[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                                "tc_bound_ms")},
         "per": "no model path (as in JAX): the attention forwards of one ChainedDiffuser "
                "and one Act3D training step flattened to (B*H, L, 15), summed over their "
-               "per-step launch counts; library_ms is SDPA",
+               "per-step launch counts; the fused forward kernel at H = 1 without stats; "
+               "library_ms is SDPA",
         "shapes": core_rows,
         "card": card,
     })
@@ -1364,6 +1414,7 @@ def main() -> int:
                                        "library_ms")},
         "per": "one call at the Act3D fine-level shape (B=16, K=3072, C=60, P=49152) at "
                "JAX's p_tile=256, n_chunks=4; no model path (as in JAX)",
+        "grid": chunked_row["grid"],
         "shapes": [chunked_row],
         "card": card,
     })

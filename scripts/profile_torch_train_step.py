@@ -95,8 +95,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_train_step: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = cs.nvidia_smi()
     print(card, flush=True)
     torch.manual_seed(cs.SEED)

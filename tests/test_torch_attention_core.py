@@ -7,20 +7,28 @@ ops, backward) is held against JAX ``attention_core(..., interpret=True)``
 shapes of tests/test_kernels.py:24-47 and tests/test_kernels_grad.py:
 forward at atol 2e-5, gradients against ``jax.vjp`` at atol 1e-4, masked
 and unmasked, with a fully masked row (uniform weights under the -1e30
-rule).  The gpu-marked cases hold the CUDA kernel against the plain
+rule).  On the card the core is the fused forward kernel at H = 1
+without stats; a CPU test checks what the wrapper tells that kernel's C
+interface.  The gpu-marked cases hold the kernel against the plain
 version on the card, forward and through autograd:
 
     python -m pytest --noconftest tests/test_torch_attention_core.py -m gpu
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from act3d_tpu_torch.kernels import attention
 from act3d_tpu_torch.kernels.attention import (
     attention_core,
     attention_core_forward,
     attention_core_reference,
+    fused_mha_forward,
+    fwd_plan,
 )
 
 
@@ -114,6 +122,29 @@ def test_wrapper_checks():
         attention_core_forward(q[0], k, k)
 
 
+def test_core_wrapper_launches_the_forward_kernel_without_stats(monkeypatch):
+    """On a CUDA tensor (faked here, with a fake library function) the
+    wrapper passes act3d_fused_mha_fwd_f32 H = 1, E = D, no stats pointer,
+    rate 0 and the core's plan, and counts attention_core, not
+    fused_mha_forward."""
+    calls = []
+    monkeypatch.setattr(attention, "_fwd_fn", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    for bh, l, s, d in [(128, 50, 3074, 15), (64, 333, 3126, 15)]:
+        q, k, v = (torch.zeros(bh, n, d) for n in (l, s, s))
+        before = attention_core.launches, fused_mha_forward.launches
+        attention._launch_core(q, k, v, None)
+        plan = fwd_plan(bh, l, s, 1, d)
+        args = calls[-1]
+        assert args[5] is None  # stats
+        assert args[7:16] == (bh, l, s, 1, d, plan.warps, plan.chunk, plan.nsplit, 0)
+        assert (args[6] is None) == (plan.nsplit == 1)
+        assert (attention_core.launches, fused_mha_forward.launches) == (before[0] + 1,
+                                                                          before[1])
+
+
 def _cuda_inputs(bh, l, s, d, kind, seed=0):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(x).cuda() for x in _inputs(rng, bh, l, s, d))
@@ -135,12 +166,38 @@ def test_cuda_kernel_matches_plain_version(bh, l, s, d, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, mask = _cuda_inputs(bh, l, s, d, kind)
-    before = attention_core.launches
+    before = attention_core.launches, fused_mha_forward.launches
     got = attention_core_forward(q, k, v, mask)
     torch.cuda.synchronize()
-    assert attention_core.launches == before + 1
+    assert (attention_core.launches, fused_mha_forward.launches) == (before[0] + 1,
+                                                                      before[1])
     torch.testing.assert_close(got, attention_core_reference(q, k, v, mask), atol=2e-5,
                                rtol=1e-4)
+    assert torch.equal(got, attention_core_forward(q, k, v, mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [None, "padded", "full_row"])
+@pytest.mark.parametrize("l,s", [(1, 1), (1, 61), (1, 3126), (17, 70), (50, 53), (50, 3074),
+                                 (65, 129), (333, 501)])
+@pytest.mark.parametrize("d", [8, 15, 16, 33, 64])
+def test_cuda_kernel_ragged_edges_and_head_dims(d, l, s, kind):
+    """Every head-dim template (DP 8 / 16 / 32 / 64, D padded in shared
+    memory), L = 1, S not a multiple of 8, the split over S and its
+    combine, padded keys (at S < 8 every key of row 0) and a fully masked
+    row (uniform weights); a repeated call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh = 6
+    q, k, v, mask = _cuda_inputs(bh, l, s, d, kind, seed=d + l + s)
+    got = attention_core_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, attention_core_reference(q, k, v, mask), atol=2e-5,
+                               rtol=1e-4)
+    assert torch.equal(got, attention_core_forward(q, k, v, mask))
+    if kind == "full_row":
+        torch.testing.assert_close(got[1], v[1].mean(dim=0).expand(l, d), atol=2e-5,
+                                   rtol=1e-4)
 
 
 @pytest.mark.gpu

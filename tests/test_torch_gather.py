@@ -18,10 +18,14 @@ use it):
     python -m pytest --noconftest tests/test_torch_gather.py -m gpu
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from act3d_tpu_torch.kernels import gather
 from act3d_tpu_torch.kernels.gather import (
     scatter_rows,
     scatter_rows_chunked,
@@ -147,6 +151,37 @@ def test_gather_without_gradient_and_wrapper_checks():
         scatter_rows_chunked(g, idx, 10, n_chunks=0)
 
 
+def test_chunked_grid_follows_p_only(monkeypatch):
+    """On a CUDA tensor (faked here, with fake library functions) the
+    chunked function checks JAX's p_tile and n_chunks and launches the
+    sorted entry, whose C interface takes neither, so the grid follows
+    (B, P) alone; float4 rows only where C % 4 == 0.  The launches count as
+    chunked ones."""
+    launched = []
+    monkeypatch.setattr(gather, "_check", lambda *a: None)
+    monkeypatch.setattr(gather, "_launch", lambda g, idx, p, entry: launched.append(entry))
+    on_card = types.SimpleNamespace(device=types.SimpleNamespace(type="cuda"))
+    for p_tile, n_chunks in ((256, 4), (1, 64), (57344, 1)):
+        before = scatter_rows_chunked.launches, scatter_rows_sorted.launches
+        scatter_rows_chunked(on_card, on_card, 49152, p_tile, n_chunks)
+        assert launched[-1] == "sorted"
+        assert (scatter_rows_chunked.launches, scatter_rows_sorted.launches) == (
+            before[0] + 1, before[1])
+    monkeypatch.undo()
+
+    calls = []
+    monkeypatch.setattr(gather, "_fn", lambda name, n: lambda *a: calls.append((name, a)) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    g, idx = torch.zeros(16, 3072, 60), torch.zeros(16, 3072, dtype=torch.int64)
+    for c, vec in ((60, 1), (7, 0)):
+        out = gather._launch(g[..., :c], idx, 49152, "sorted")
+        name, args = calls[-1]
+        assert name == "act3d_scatter_rows_sorted_f32" and out.shape == (16, 49152, c)
+        assert args[3:] == (16, 3072, 49152, c, 3072 * 60, 60, vec, 7)
+
+
 def _cuda_case(layout, b, p, k, c, seed=0):
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -219,3 +254,27 @@ def test_cuda_chunked_kernel_matches_plain_version(layout, b, p, k, c, p_tile, n
     wide = torch.cat([g, g[:, :1]], dim=1)[:, 1:]  # a strided view, read in place
     assert torch.equal(scatter_rows_chunked(wide, idx, p, p_tile, n_chunks),
                        scatter_rows_reference(wide.contiguous(), idx, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["topk_nearest", "uniform", "edges"])
+@pytest.mark.parametrize("p_tile", [1, 100, 256, 57344])
+@pytest.mark.parametrize("n_chunks", [1, 4, 17, 64])
+def test_cuda_chunked_kernel_any_tiling(n_chunks, p_tile, layout):
+    """On the card, at the Act3D fine-level shape and at a P that needs
+    padding (P % 128 != 0, K % 128 != 0), for the three index layouts of
+    chip_smoke.gather_indices: bit-exact against the plain version, and
+    bit-identical on repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import gather_indices
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(n_chunks * 1000 + p_tile)
+    for b, k, p in ((16, 3072, 49152), (3, 1000, 4999)):
+        idx = gather_indices(layout, gen, dev, b, k, p)
+        g = torch.randn(b, k, 60, generator=gen, device=dev)
+        got = scatter_rows_chunked(g, idx, p, p_tile, n_chunks)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scatter_rows_reference(g, idx, p)), (b, k, p)
+        assert torch.equal(got, scatter_rows_chunked(g, idx, p, p_tile, n_chunks))

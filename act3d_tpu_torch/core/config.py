@@ -159,39 +159,43 @@ class TrajectoryConfig(CommonConfig):
 
 
 def _reject_unported(cfg: CommonConfig) -> None:
-    """Raise NotImplementedError for a flag value the port lacks."""
+    """Raise NotImplementedError for a flag value the port lacks, naming the
+    ROADMAP Queue A item that ports it by its title."""
+    host_path = 'ROADMAP Queue A, item "the training host path"'
     rules = [
         (cfg.num_devices > 1 or cfg.fsdp > 1, "--num_devices > 1 / --fsdp > 1",
-         "ROADMAP Queue A #9 (parallel)"),
-        (cfg.compact_transfer, "--compact_transfer", "ROADMAP Queue A #6 (compact.py)"),
-        (cfg.wire != "pcd", f"--wire {cfg.wire}", "ROADMAP Queue A #6 (depthwire.py)"),
+         'ROADMAP Queue A, item "parallel"'),
+        (cfg.compact_transfer, "--compact_transfer", f"{host_path} (compact.py)"),
+        (cfg.wire != "pcd", f"--wire {cfg.wire}", f"{host_path} (depthwire.py)"),
         (cfg.instr_mode != "features", f"--instr_mode {cfg.instr_mode}",
-         "ROADMAP Queue A #6 (instruction ids)"),
-        (cfg.device_augment, "--device_augment", "ROADMAP Queue A #6 (device_augment.py)"),
-        (cfg.num_workers > 1, "--num_workers > 1", "ROADMAP Queue A #6 (pipeline.py)"),
-        (cfg.mixed_precision, "--mixed_precision", "ROADMAP Queue A #11 (bf16 training)"),
-        (cfg.use_tensorboard, "--use_tensorboard", "ROADMAP Queue A #6 (tensorboard)"),
+         f"{host_path} (instruction ids)"),
+        (cfg.device_augment, "--device_augment", f"{host_path} (device_augment.py)"),
+        (cfg.num_workers > 1, "--num_workers > 1", f"{host_path} (pipeline.py)"),
+        (cfg.mixed_precision, "--mixed_precision", 'ROADMAP Queue A, item "bf16 training"'),
+        (cfg.use_tensorboard, "--use_tensorboard", f"{host_path} (tensorboard)"),
         (cfg.backbone != "clip", f"--backbone {cfg.backbone}",
-         "ROADMAP Queue A #5 (TorchResNet50)"),
+         'ROADMAP Queue A, item "TorchResNet50"'),
         (cfg.device not in ("cuda", "cpu"), f"--device {cfg.device}", "cuda or cpu only"),
     ]
     if isinstance(cfg, KeyposeConfig):
+        act3d = 'ROADMAP Queue A, item "Act3D options"'
         rules += [
             (cfg.rotation_parametrization != "quat_from_query",
              f"--rotation_parametrization {cfg.rotation_parametrization}",
-             "ROADMAP Queue A #4 (Act3D rotation parametrizations)"),
+             f"{act3d} (rotation parametrizations)"),
             (not cfg.weight_tying or not cfg.gp_emb_tying, "--weight_tying 0 / --gp_emb_tying 0",
-             "ROADMAP Queue A #4 (untied Act3D levels)"),
-            (cfg.approx_topk, "--approx_topk", "ROADMAP Queue A #4 (approximate top-k)"),
+             f"{act3d} (untied levels)"),
+            (cfg.approx_topk, "--approx_topk", f"{act3d} (approximate top-k)"),
         ]
     if isinstance(cfg, TrajectoryConfig):
+        planner = 'ROADMAP Queue A, item "ChainedDiffuser options"'
         rules += [
             (cfg.rotation_parametrization != "6D",
              f"--rotation_parametrization {cfg.rotation_parametrization}",
-             "ROADMAP Queue A #3 (6D only)"),
+             f"{planner} (6D only)"),
             (cfg.feat_scales_to_use != 1 or cfg.attn_rounds != 1,
              "--feat_scales_to_use / --attn_rounds != 1",
-             "ROADMAP Queue A #3 (multi-scale DiffusionHead)"),
+             f"{planner} (multi-scale DiffusionHead)"),
         ]
     for bad, flag, item in rules:
         if bad:

@@ -1,1 +1,3 @@
-"""Closed-loop serving: the chained keypose -> trajectory Actioner."""
+"""Closed-loop evaluation: the chained keypose -> trajectory Actioner, the
+RLBench loop over a simulator or its sim-free stand-in, the eval CLI
+(``main``) and the real-robot loop."""

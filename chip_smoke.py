@@ -97,7 +97,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      100 steps, dense interpolation to 50, goal, instructions),
      --train_iters 4 --val_freq 4: 19 + 19 launches per training step, one
      evaluation with the 100-step sampler at batch 4; resumes at step 4.
-Every main-path phase (serve, train, train_act3d and the two CLIs) runs
+ 16. cli_eval: an Act3D and a DiffusionPlanner at act3d_tpu/eval/main.py's
+     default widths (the serve phase's), seeded weights saved by
+     Trainer.save_checkpoint as best.pt, then act3d_tpu_torch.eval.main.main
+     over the sim-free backend (--fake_sim 1 --tasks pick_and_lift
+     --num_demos 1 --max_steps 3 --record_videos 0, every other flag its
+     default): 1918 fused_mha_fwd launches and no other kernel in each
+     keystep, the success-rate JSON in JAX's layout; then --offline 1
+     --predict_traj 0 (18 launches a keystep, Act3D alone) must score on
+     every demo.  Prints each keystep's host-clock latency (Act3D /
+     sampler) and the phase's peak memory.
+Every main-path phase (serve, train, train_act3d and the three CLIs) runs
 with all launch counts set to 0 just before it and read just after.
 The second-to-last line is a JSON object of kernel numbers (six kernels);
 the last is {"ok": true, "device": {...}}.  Without a card it exits
@@ -123,6 +133,7 @@ import torch.nn.functional as F
 from act3d_tpu_torch.data.feeder import DeviceFeeder
 from act3d_tpu_torch.data.fixtures import make_dataset_tree, make_instructions
 from act3d_tpu_torch.device import float32_precision, resolve_device
+from act3d_tpu_torch.eval import main as eval_main
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.kernels import _build
 from act3d_tpu_torch.kernels import gather as gather_kernels
@@ -225,6 +236,14 @@ TRAJECTORY_CLI_FLAGS = [
     "--exp_log_dir", "exp",
 ]
 
+# The eval CLI over the sim-free backend; every other flag is its default
+# (act3d_tpu/eval/main.py's widths, as ACT3D_CFG / PLANNER_CFG).  With
+# --num_demos 1 the loop runs num_demos // 1 variation + 1 = 2 demos of one
+# keystep each (the fake demo's one keypose).
+EVAL_CLI_FLAGS = ["--fake_sim", "1", "--tasks", "pick_and_lift", "--num_demos", "1",
+                  "--max_steps", "3", "--record_videos", "0"]
+EVAL_CLI_DEMOS = 2
+
 
 def planner_sites_per_denoise() -> int:
     """Attention cores of one DiffusionHead.denoise: vl_attention +
@@ -235,12 +254,18 @@ def planner_sites_per_denoise() -> int:
             + 2 * (p["num_query_cross_attn_layers"] - 2) + 2 * 2 + 2 * 2)
 
 
-def expected_launches_per_keystep() -> int:
-    a, p = ACT3D_CFG, PLANNER_CFG
-    act3d = a["num_sampling_level"] * (
+def act3d_sites_per_forward() -> int:
+    """Attention cores of one Act3D forward: vis_ins, ghost_point and query
+    stacks at every level."""
+    a = ACT3D_CFG
+    return a["num_sampling_level"] * (
         a["num_vis_ins_attn_layers"] + a["num_ghost_point_cross_attn_layers"]
         + a["num_query_cross_attn_layers"])
-    return act3d + p["diffusion_timesteps"] * planner_sites_per_denoise()
+
+
+def expected_launches_per_keystep() -> int:
+    return (act3d_sites_per_forward()
+            + PLANNER_CFG["diffusion_timesteps"] * planner_sites_per_denoise())
 
 
 # (site, L, S, E, H, mask kind, launches per keystep); B = 1.  Context
@@ -1185,6 +1210,103 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
                 peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
 
 
+@contextlib.contextmanager
+def recorded_keysteps():
+    """Records, for every Actioner.predict run inside the block, its
+    host-clock seconds, the Act3D and sampler seconds (predict's own
+    ``timed`` marks, which synchronize the device) and the launches of each
+    kernel (in KERNELS order) that the keystep made."""
+    records, predict = [], Actioner.predict
+
+    def recorded(self, *args, **kwargs):
+        start = [fn.launches for fn in KERNELS.values()]
+        t0 = time.perf_counter()
+        out = predict(self, *args, timed=True, **kwargs)
+        records.append(dict(
+            seconds=time.perf_counter() - t0, act3d_s=self.last_phase_seconds["act3d"],
+            sampler_s=self.last_phase_seconds["sampler"],
+            launches=tuple(fn.launches - n for fn, n in zip(KERNELS.values(), start))))
+        return out
+
+    Actioner.predict = recorded
+    try:
+        yield records
+    finally:
+        Actioner.predict = predict
+
+
+def phase_cli_eval(card):
+    """The eval CLI as a user runs it after training: both models at
+    act3d_tpu/eval/main.py's default widths with seeded weights, saved by
+    Trainer.save_checkpoint as best.pt, then eval_main.main over the
+    sim-free backend on the card.  Checks every keystep's launches, the
+    JSON's layout (task -> {variation, "mean"}) and, following the demos'
+    keyposes without the sampler, a score on every demo: the fake task
+    rewards the demo's final keypose.  The loop's rate is JAX's compensated
+    success count (demos scored x num_demos / (num_demos - missing)), so a
+    full score with 2 demos run reads 2.0."""
+    expected = expected_launches_per_keystep()
+    # launches per keystep in KERNELS order: fused_mha_fwd alone
+    full, act3d_only = (expected,) + (0,) * 5, (act3d_sites_per_forward(),) + (0,) * 5
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_eval_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ipath = tmp / "instructions.pkl"
+        ipath.write_bytes(pickle.dumps(make_instructions(("pick_and_lift",), seed=SEED)))
+        torch.manual_seed(SEED)
+        for name, model in (("act3d", Act3D(**ACT3D_CFG, device="cpu")),
+                            ("planner", DiffusionPlanner(**PLANNER_CFG, device="cpu"))):
+            Trainer(None, model).save_checkpoint(tmp / name)
+        save_s = time.perf_counter() - t0
+
+        def run(output, *extra):
+            argv = ["--data_dir", str(tmp), "--instructions", str(ipath),
+                    "--keypose_ckpt", str(tmp / "act3d" / "best.pt"),
+                    "--traj_ckpt", str(tmp / "planner" / "best.pt"),
+                    "--output", str(tmp / output), "--log_dir", str(tmp / "logs"),
+                    *EVAL_CLI_FLAGS, *extra]
+            t0 = time.perf_counter()
+            with recorded_keysteps() as keysteps:
+                results = eval_main.main(argv)
+            seconds = time.perf_counter() - t0
+            written = json.loads((tmp / output).read_text())
+            assert written == {t: {str(k): v for k, v in r.items()}
+                               for t, r in results.items()}, (written, results)
+            assert list(written) == ["pick_and_lift"], written
+            assert sorted(written["pick_and_lift"]) == ["0", "mean"], written
+            assert all(0.0 <= r <= EVAL_CLI_DEMOS for r in written["pick_and_lift"].values())
+            assert len(keysteps) == EVAL_CLI_DEMOS, keysteps
+            return written["pick_and_lift"], keysteps, seconds
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        rates, keysteps, seconds = run("eval_results.json")
+        peak = torch.cuda.max_memory_allocated()
+        for i, k in enumerate(keysteps):
+            print(f"cli_eval keystep {i}: {k['seconds'] * 1e3:.1f} ms (act3d "
+                  f"{k['act3d_s'] * 1e3:.1f} ms, sampler {k['sampler_s'] * 1e3:.1f} ms); "
+                  f"launches {dict(zip(KERNELS, k['launches']))} | {card}", flush=True)
+        assert all(k["launches"] == full for k in keysteps), keysteps
+        offline_rates, offline_keysteps, offline_s = run(
+            "eval_offline.json", "--offline", "1", "--predict_traj", "0")
+        for i, k in enumerate(offline_keysteps):
+            print(f"cli_eval offline keystep {i}: {k['seconds'] * 1e3:.1f} ms (act3d "
+                  f"{k['act3d_s'] * 1e3:.1f} ms); launches "
+                  f"{dict(zip(KERNELS, k['launches']))} | {card}", flush=True)
+        assert all(k["launches"] == act3d_only for k in offline_keysteps), offline_keysteps
+        assert offline_rates["mean"] == EVAL_CLI_DEMOS, offline_rates
+    print(f"cli_eval: rates {rates} (chained, seeded random weights), offline {offline_rates}; "
+          f"peak memory {peak / 2**20:.1f} MiB (allocated before the CLI started "
+          f"{resident / 2**20:.1f} MiB); whole run {seconds:.1f} s, offline run "
+          f"{offline_s:.1f} s, checkpoints written in {save_s:.1f} s | {card}", flush=True)
+    return dict(rates=rates, offline_rates=offline_rates, keysteps=keysteps,
+                offline_keysteps=offline_keysteps, peak_memory_bytes=peak,
+                resident_memory_bytes=resident, seconds=seconds,
+                offline_seconds=offline_s, launches_per_keystep=expected)
+
+
 def print_plans(serve_rows, train_fwd, train_bwd, kp_fwd, kp_bwd):
     """The device kernels each fused-MHA wrapper call runs (one, or two with
     the forward's split combine or the backward's slab sums) and its
@@ -1312,6 +1434,7 @@ def main() -> int:
     cli_traj = drive("cli_trajectory", phase_cli, dev, card, "cli_trajectory",
                      main_trajectory.main, TRAJECTORY_CLI_FLAGS, 4, 4, per_step_traj,
                      "traj_action_mse")
+    cli_eval = drive("cli_eval", phase_cli_eval, card)
     for phase, counts in main_path.items():
         print(f"main path {phase}: launches {counts}", flush=True)
         assert counts["attention_core"] == counts["scatter_rows_chunked"] == 0, counts
@@ -1421,7 +1544,7 @@ def main() -> int:
     for kernel in kernels:
         kernel["main_path_launches"] = {phase: c[kernel["name"]]
                                         for phase, c in main_path.items()}
-    kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj)
+    kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj, cli_eval=cli_eval)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

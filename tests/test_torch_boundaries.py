@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port.
 
 * ``act3d_tpu_torch`` (every submodule) and ``chip_smoke.py`` import with
-  ``jax`` made unimportable, and load nothing of ``act3d_tpu``.
+  ``jax`` made unimportable, and load nothing of ``act3d_tpu``; the eval
+  CLI and the RLBench loop also import without OpenCV, RLBench and PyRep,
+  which the card's machine lacks.
 * The entry points run on the card by default: without one they raise
   instead of drifting to the CPU, and ``chip_smoke.py`` exits non-zero
   without printing a result.
@@ -33,6 +35,17 @@ print(len(names), "modules")
 """
 
 
+_IMPORT_EVAL = r"""
+import sys
+for name in ("jax", "flax", "cv2", "rlbench", "pyrep"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import act3d_tpu_torch.eval.main
+from act3d_tpu_torch.eval import rlbench_env
+assert not rlbench_env.HAS_RLBENCH
+print("ok")
+"""
+
+
 def _run(args, cwd, **kw):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -44,6 +57,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 15
+
+
+def test_eval_cli_imports_without_opencv_or_the_simulator():
+    proc = _run(["-c", _IMPORT_EVAL], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
 
 
 def test_entry_points_without_a_device_raise_here():

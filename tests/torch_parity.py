@@ -3,6 +3,9 @@ against its PyTorch port, on the CPU)."""
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -50,3 +53,36 @@ def close(got, want, atol, rtol=0.0):
         got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got),
         np.asarray(want), atol=atol, rtol=rtol,
     )
+
+
+FAKE_REFERENCE = Path(__file__).parent / "fake_reference"
+
+
+def fake_reference_models():
+    """(Act3D, DiffusionPlanner) of the torch-only reference doubles in
+    tests/fake_reference, whose state dicts have the upstream layout."""
+    sys.path.insert(0, str(FAKE_REFERENCE))
+    try:
+        from model.keypose_optimization.act3d import Act3D
+        from model.trajectory_optimization.diffusion_model import DiffusionPlanner
+    finally:
+        sys.path.remove(str(FAKE_REFERENCE))
+    return Act3D, DiffusionPlanner
+
+
+def save_reference_checkpoint(model, path, seed: int):
+    """Seeded non-trivial weights for a reference-layout model (every
+    parameter perturbed, BatchNorm statistics drawn; tied modules stay
+    tied), saved as the reference trainer does: ``{"weight": state_dict}``
+    with DDP's ``module.`` prefixes."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.3 * torch.randn(m.num_features, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
+    state = {f"module.{k}": v for k, v in model.state_dict().items()}
+    torch.save({"weight": state, "iter": 0}, path)
+    return state

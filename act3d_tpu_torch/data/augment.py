@@ -47,9 +47,8 @@ class Resize:
         """Draw one augmentation and return it as per-axis SOURCE-index
         vectors (rows (raw_h,), cols (raw_w,)): the whole NEAREST resize
         + reflect-pad + random-crop collapses to an outer index map
-        ``img[rows[:, None], cols[None, :]]`` (JAX's depth wire ships these
-        maps; the port's data path does not have that wire yet).  Draws
-        (scale, i, j), in that order."""
+        ``img[rows[:, None], cols[None, :]]`` (the depth wire ships these
+        maps, ``depthwire.py``).  Draws (scale, i, j), in that order."""
         sc = self.rng.uniform(*self.scales)
         new_h, new_w = int(raw_h * sc), int(raw_w * sc)
         rows = np.minimum(

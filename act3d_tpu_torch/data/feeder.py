@@ -16,9 +16,15 @@ Memory safety, since a fault here gives wrong batches and no crash:
     calls ``record_stream`` on every tensor it hands out, so the caching
     device allocator does not reuse a batch's memory (allocated on the side
     stream) while the caller's stream may still read it.
-List-valued keys (``task``) pass through.  On the CPU the arrays become
-plain tensors.  An exception in ``batch_fn`` is raised again by
-``__next__``.
+List-valued keys (``task``) pass through.  Any array dtype goes through
+as it is (float32, and the compact and depth wires' uint8, uint16, int32
+and bool).  On the CPU the arrays are copied into plain tensors.  An
+exception in ``batch_fn`` is raised again by ``__next__``.
+
+``batch_fn`` may return zero-copy views that its next call overwrites
+(``MultiProcessSampler(copy=False)``): the thread copies every array out
+(``pin_memory()`` on the card, a copy on the CPU) before it calls
+``batch_fn`` again.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ class DeviceFeeder:
 
     def _to_device(self, batch: dict):
         if not self._cuda:
-            return to_tensors(batch, self._device), None
+            return to_tensors({k: v if isinstance(v, list) else np.array(v)
+                               for k, v in batch.items()}, self._device), None
         out: Dict[str, object] = {}
         with torch.cuda.stream(self._stream):
             for k, v in batch.items():

@@ -22,7 +22,8 @@ import torch.nn as nn
 from ..nn.dropout import Generators
 from .optim import GradientAccumulator, make_optimizer
 
-__all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume"]
+__all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume",
+           "summary_writer_class"]
 
 
 class GracefulShutdown:
@@ -55,12 +56,28 @@ class GracefulShutdown:
         return False
 
 
-class MetricLogger:
-    """Appends one JSON line per ``log`` call to ``log_dir/metrics.jsonl``."""
+def summary_writer_class():
+    """``torch.utils.tensorboard.SummaryWriter``; raises ImportError when
+    the ``tensorboard`` package is absent.  (JAX's logger drops TensorBoard
+    quietly then; the port's CLIs call this at start and fail instead.)"""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError("--use_tensorboard 1 needs the tensorboard package, which is not "
+                          "importable here") from e
+    return SummaryWriter
 
-    def __init__(self, log_dir: Path):
+
+class MetricLogger:
+    """Appends one JSON line per ``log`` call to ``log_dir/metrics.jsonl``
+    and, with ``use_tensorboard``, writes the same scalars to a TensorBoard
+    event file in ``log_dir`` through ``tb`` (reference engine.py:28-29,
+    main_keypose.py:232-234)."""
+
+    def __init__(self, log_dir: Path, use_tensorboard: bool = False):
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.tb = summary_writer_class()(log_dir=str(self.log_dir)) if use_tensorboard else None
         self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
 
     def log(self, step: int, metrics: Dict[str, float]):
@@ -68,9 +85,14 @@ class MetricLogger:
         rec.update({k: float(v) for k, v in metrics.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
+        if self.tb is not None:
+            for k, v in metrics.items():
+                self.tb.add_scalar(k, float(v), step)
 
     def close(self):
         self._jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 class Trainer:
@@ -84,6 +106,7 @@ class Trainer:
       lr / weight_decay: AdamW (reference defaults 1e-4, 5e-4).
       accumulate_grad_batches: micro-batches averaged per optimizer step.
       seed: of the :class:`Generators` that drive dropout and noise.
+      use_tensorboard: the logger also writes TensorBoard events.
     """
 
     def __init__(
@@ -97,6 +120,7 @@ class Trainer:
         accumulate_grad_batches: int = 1,
         log_dir: Optional[Path] = None,
         seed: int = 0,
+        use_tensorboard: bool = False,
     ):
         self.model = model
         self.optimizer = make_optimizer(model, lr=lr, weight_decay=weight_decay)
@@ -107,7 +131,7 @@ class Trainer:
         self.best_loss: Optional[float] = None
         self._loss_fn = loss_fn
         self._metrics_fn = metrics_fn
-        self.logger = MetricLogger(log_dir) if log_dir else None
+        self.logger = MetricLogger(log_dir, use_tensorboard) if log_dir else None
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward, and an optimizer step every

@@ -5,8 +5,11 @@ The port of ``act3d_tpu/train/main_keypose.py``, the reference
 ``DeviceFeeder`` -> ``Trainer.step`` (Act3D, ``KeyposeLossAndMetrics``,
 AdamW), with the aggregated evaluation on the train and val sets every
 ``val_freq`` steps, best/last checkpoints keyed on ``mean/pos_l2_final``,
-SIGTERM/SIGINT checkpointing and ``--eval_only``.  It runs on the card
-unless ``--device cpu`` is given.
+SIGTERM/SIGINT checkpointing and ``--eval_only``.  The host path takes
+JAX's flags: ``--num_workers`` (worker processes, ``data/pipeline.py``),
+``--device_augment`` (Resize / Rotate on the card), ``--compact_transfer``,
+``--wire depth``, ``--instr_mode ids`` and ``--use_tensorboard``.  It runs
+on the card unless ``--device cpu`` is given.
 
 Run:
   python -m act3d_tpu_torch.train.main_keypose \\
@@ -30,27 +33,31 @@ from ..data.feeder import to_tensors
 from ..device import resolve_device
 from ..models import Act3D
 from ..utils.registry import count_parameters
-from .cli import (best_metric, dataset_args, host_batch, load_cli_instructions,
-                  n_eval_batches, run_training, workspace_bounds)
-from .engine import Trainer, resume
+from .cli import (WIRE_KEYS, best_metric, compact_wire, dataset_args, device_augment,
+                  host_batch, load_cli_instructions, n_eval_batches, run_training,
+                  train_dataset_args, train_sampler, workspace_bounds)
+from .engine import Trainer, resume, summary_writer_class
 from .flagship import keypose_loss_fn, keypose_metrics_fn
 from .losses import KeyposeLossAndMetrics, split_metrics_by_task
 
-MODEL_KEYS = ("rgbs", "pcds", "instr", "curr_gripper", "action")
+MODEL_KEYS = ("rgbs", "pcds", "instr", "curr_gripper", "action") + WIRE_KEYS
 
 
 def main(argv=None):
     cfg = parse_config(KeyposeConfig, argv)
     dev = resolve_device(cfg.device)
+    if cfg.use_tensorboard:
+        summary_writer_class()
     bounds = workspace_bounds(cfg)
     cfg.save(cfg.log_dir / "hparams.json")
     instruction = load_cli_instructions(cfg)
     common = dataset_args(cfg, instruction, bounds, return_low_lvl_trajectory=False,
                           action_dim=8)
-    train_ds = RLBenchDataset(root=cfg.dataset, cache_size=cfg.cache_size, training=True,
-                              **common)
+    train_kwargs = train_dataset_args(cfg, common)
+    train_ds = RLBenchDataset(**train_kwargs)
     val_ds = RLBenchDataset(root=cfg.valset, cache_size=cfg.cache_size_val, training=False,
                             **common)
+    augment = device_augment(cfg, train_ds, bounds, ("curr_gripper", "action"))
 
     torch.manual_seed(cfg.seed)
     model = Act3D(
@@ -81,16 +88,20 @@ def main(argv=None):
         gripper_loss_coeff=cfg.gripper_loss_coeff,
         symmetric_rotation_loss=bool(cfg.symmetric_rotation_loss),
     )
+    bank = train_ds.instruction_bank
     trainer = Trainer(
         keypose_loss_fn(model, criterion,
-                        bool(cfg.use_ground_truth_position_for_sampling_train)),
+                        bool(cfg.use_ground_truth_position_for_sampling_train),
+                        augment=augment, instr_bank=bank),
         model,
         metrics_fn=keypose_metrics_fn(model, criterion,
-                                      bool(cfg.use_ground_truth_position_for_sampling_val)),
+                                      bool(cfg.use_ground_truth_position_for_sampling_val),
+                                      instr_bank=bank),
         lr=cfg.lr,
         accumulate_grad_batches=cfg.accumulate_grad_batches,
         log_dir=cfg.log_dir,
         seed=cfg.seed,
+        use_tensorboard=bool(cfg.use_tensorboard),
     )
     resume(trainer, cfg.log_dir, cfg.checkpoint, bool(cfg.auto_resume))
 
@@ -113,10 +124,13 @@ def main(argv=None):
             for k, v in sorted(metrics.items()):
                 print(f"{k}: {v:.4f}")
             return metrics
+        compact = compact_wire(cfg, train_ds)
+        sampler = train_sampler(cfg, train_kwargs, compact)
         evals = run_training(
-            cfg, trainer, lambda: host_batch(train_ds, cfg.batch_size, MODEL_KEYS), dev,
-            lambda: (run_eval(train_ds), run_eval(val_ds)),
-            "train-loss/total", best_metric(cfg, "mean/pos_l2_final"))
+            cfg, trainer,
+            lambda: host_batch(train_ds, cfg.batch_size, MODEL_KEYS, sampler, compact), dev,
+            lambda step: (run_eval(train_ds), run_eval(val_ds)),
+            "train-loss/total", best_metric(cfg, "mean/pos_l2_final"), sampler)
         return {"evals": evals}
     finally:
         if trainer.logger:

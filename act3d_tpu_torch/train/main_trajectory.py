@@ -9,8 +9,12 @@ set, then the sampler eval (the full reverse diffusion of
 ``compute_trajectory`` on one val batch, scored by
 ``TrajectoryCriterion``), a log line, and best/last checkpoints keyed on
 ``traj_action_mse``.  SIGTERM/SIGINT checkpointing and ``--eval_only`` as
-in JAX; JAX's tensorboard scatter image is not ported (``--use_tensorboard``
-raises).  It runs on the card unless ``--device cpu`` is given.
+in JAX.  The host path takes JAX's flags (``--num_workers``,
+``--device_augment``, ``--compact_transfer``, ``--wire depth``,
+``--instr_mode ids``); with ``--use_tensorboard 1`` the scalars go to a
+TensorBoard event file too, with the sampler eval's scatter image of its
+first sample (``val-viz/viz``).  It runs on the card unless ``--device
+cpu`` is given.
 
 Run:
   python -m act3d_tpu_torch.train.main_trajectory \\
@@ -32,19 +36,23 @@ from ..data.feeder import to_tensors
 from ..device import resolve_device
 from ..models import DiffusionPlanner, compute_trajectory
 from ..utils.registry import count_parameters
-from .cli import (best_metric, dataset_args, host_batch, load_cli_instructions,
-                  n_eval_batches, run_training, workspace_bounds)
-from .engine import Trainer, resume
-from .flagship import diffusion_loss_fn, diffusion_metrics_fn
+from .cli import (WIRE_KEYS, best_metric, compact_wire, dataset_args, device_augment,
+                  host_batch, load_cli_instructions, n_eval_batches, run_training,
+                  train_dataset_args, train_sampler, workspace_bounds)
+from .engine import Trainer, resume, summary_writer_class
+from .flagship import (canonical_batch, diffusion_loss_fn, diffusion_metrics_fn,
+                       instruction_bank_on)
 from .losses import TrajectoryCriterion
 
 MODEL_KEYS = ("trajectory", "trajectory_mask", "rgbs", "pcds", "instr", "curr_gripper",
-              "action")
+              "action") + WIRE_KEYS
 
 
 def main(argv=None):
     cfg = parse_config(TrajectoryConfig, argv)
     dev = resolve_device(cfg.device)
+    if cfg.use_tensorboard:
+        summary_writer_class()
     bounds = workspace_bounds(cfg)
     cfg.save(cfg.log_dir / "hparams.json")
     instruction = load_cli_instructions(cfg)
@@ -52,10 +60,11 @@ def main(argv=None):
                           dense_interpolation=bool(cfg.dense_interpolation),
                           interpolation_length=cfg.interpolation_length,
                           action_dim=cfg.action_dim)
-    train_ds = RLBenchDataset(root=cfg.dataset, cache_size=cfg.cache_size, training=True,
-                              **common)
+    train_kwargs = train_dataset_args(cfg, common)
+    train_ds = RLBenchDataset(**train_kwargs)
     val_ds = RLBenchDataset(root=cfg.valset, cache_size=cfg.cache_size_val, training=False,
                             **common)
+    augment = device_augment(cfg, train_ds, bounds, ("curr_gripper", "action", "trajectory"))
 
     torch.manual_seed(cfg.seed)
     model = DiffusionPlanner(
@@ -73,33 +82,45 @@ def main(argv=None):
         device=dev,
     )
     print("Model parameters:", count_parameters(model))
-    trainer = Trainer(diffusion_loss_fn(model), model,
-                      metrics_fn=diffusion_metrics_fn(model), lr=cfg.lr,
+    bank = train_ds.instruction_bank
+    trainer = Trainer(diffusion_loss_fn(model, augment=augment, instr_bank=bank), model,
+                      metrics_fn=diffusion_metrics_fn(model, instr_bank=bank), lr=cfg.lr,
                       accumulate_grad_batches=cfg.accumulate_grad_batches,
-                      log_dir=cfg.log_dir, seed=cfg.seed)
+                      log_dir=cfg.log_dir, seed=cfg.seed,
+                      use_tensorboard=bool(cfg.use_tensorboard))
     resume(trainer, cfg.log_dir, cfg.checkpoint, bool(cfg.auto_resume))
+    sampler_bank = instruction_bank_on(bank, dev)
 
     def batches(dataset, batch_size):
         return [to_tensors(host_batch(dataset, batch_size, MODEL_KEYS), dev)
                 for _ in range(n_eval_batches(cfg))]
 
-    def run_sampler_eval():
+    def run_sampler_eval(step_id):
         """The reference's run_inference path (main_trajectory.py:218-259):
-        100-step reverse diffusion on one val batch and its trajectory
-        metrics (per-sample entries left out)."""
-        vb = to_tensors(host_batch(val_ds, cfg.batch_size_val, MODEL_KEYS), dev)
+        100-step reverse diffusion on one val batch (its wire decoded first)
+        and its trajectory metrics (per-sample entries left out); with
+        TensorBoard, the first sample's scatter image."""
+        vb = canonical_batch(to_tensors(host_batch(val_ds, cfg.batch_size_val, MODEL_KEYS),
+                                        dev), sampler_bank)
         model.eval()
         pred = compute_trajectory(model, vb["trajectory_mask"], vb["rgbs"], vb["pcds"],
                                   vb["instr"], vb["curr_gripper"], vb["action"],
                                   generator=trainer.generators.device)
         metrics = TrajectoryCriterion.compute_metrics(pred, vb["trajectory"])
+        if trainer.logger and trainer.logger.tb is not None:
+            from .viz import trajectory_scatter_image
+
+            img = trajectory_scatter_image(
+                pred[0].cpu().numpy(), vb["trajectory"][0].cpu().numpy(),
+                vb["trajectory_mask"][0].cpu().numpy())
+            trainer.logger.tb.add_image("val-viz/viz", img, step_id)
         return {k: float(v.mean()) for k, v in metrics.items()
                 if not k.startswith("per_sample/")}
 
-    def evaluate():
+    def evaluate(step_id):
         train_metrics = trainer.evaluate(batches(train_ds, cfg.batch_size))
         val_metrics = trainer.evaluate(batches(val_ds, cfg.batch_size_val))
-        val_metrics.update(run_sampler_eval())
+        val_metrics.update(run_sampler_eval(step_id))
         return train_metrics, val_metrics
 
     try:
@@ -108,9 +129,13 @@ def main(argv=None):
             for k, v in sorted(metrics.items()):
                 print(f"{k}: {v:.4f}")
             return metrics
+        compact = compact_wire(cfg, train_ds)
+        sampler = train_sampler(cfg, train_kwargs, compact)
         evals = run_training(
-            cfg, trainer, lambda: host_batch(train_ds, cfg.batch_size, MODEL_KEYS),
-            dev, evaluate, "train-loss/noise_mse", best_metric(cfg, "traj_action_mse"))
+            cfg, trainer,
+            lambda: host_batch(train_ds, cfg.batch_size, MODEL_KEYS, sampler, compact),
+            dev, evaluate, "train-loss/noise_mse", best_metric(cfg, "traj_action_mse"),
+            sampler)
         return {"evals": evals}
     finally:
         if trainer.logger:

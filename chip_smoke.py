@@ -107,7 +107,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      --predict_traj 0 (18 launches a keystep, Act3D alone) must score on
      every demo.  Prints each keystep's host-clock latency (Act3D /
      sampler) and the phase's peak memory.
-Every main-path phase (serve, train, train_act3d and the three CLIs) runs
+ 17. host_path: over the CLIs' fixture tree, at the keypose CLI's shapes
+     (batch 16, 3 cameras at 256^2): expand_batch's uint8 / uint16
+     conversions on the card against the CPU (exact), the u16 wires and the
+     depth wire's reconstruct_pcds against the host XYZ batch of the same
+     draws (within WIRE_TOL = 5e-4 m), gather_hw and device_augment's
+     resize against the host Resize of the same draws (exact).  Then where
+     the host batch's time goes: median host-clock ms of sample_batch at
+     both CLIs' flags (batch 16 / 22) with the host Resize on and off, wire
+     pcd and depth, dense interpolation on and off, compact_batch, the
+     pinned copy and the H2D copy of each batch, sample_batch in a thread
+     while the main thread dispatches CUDA ops (the GIL), the
+     multi-process sampler's batches with W workers, and what a worker's
+     imports cost.
+ 18. cli_keypose_host_path: phase 14 with --num_workers W --device_augment 1
+     --compact_transfer 1 --instr_mode ids, W = half the machine's cores
+     (printed), 24 steps with one evaluation at the end (so that the feeder
+     wait of steps 12- is the steady state's), then a resume: the same
+     checks and launches per step.
+ 19. cli_trajectory_host_path: phase 15 with --wire depth --instr_mode ids
+     --num_workers W, 24 steps likewise; then the feeder wait per step and
+     the peak memory of each CLI with (steps 12-) and without (the steps
+     before the first evaluation) the host-path flags.
+Then the samplers' fork server and resource tracker are stopped (they
+would outlive the script by seconds), and the script fails if any process
+it started is left.
+Every main-path phase (serve, train, train_act3d and the five CLIs) runs
 with all launch counts set to 0 just before it and read just after.
 The second-to-last line is a JSON object of kernel numbers (six kernels);
 the last is {"ok": true, "device": {...}}.  Without a card it exits
@@ -119,10 +144,12 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -130,8 +157,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from act3d_tpu_torch.data.feeder import DeviceFeeder
-from act3d_tpu_torch.data.fixtures import make_dataset_tree, make_instructions
+from act3d_tpu_torch.data.augment import Resize
+from act3d_tpu_torch.data.compact import compact_batch, expand_batch
+from act3d_tpu_torch.data.dataset import RLBenchDataset
+from act3d_tpu_torch.data.depthwire import gather_hw, reconstruct_pcds
+from act3d_tpu_torch.data.device_augment import resize_with_params
+from act3d_tpu_torch.data.feeder import DeviceFeeder, to_tensors
+from act3d_tpu_torch.data.fixtures import CAMERAS, make_dataset_tree, make_instructions
+from act3d_tpu_torch.data.pipeline import (
+    MultiProcessSampler,
+    rlbench_dataset_factory,
+    stop_helper_processes,
+)
 from act3d_tpu_torch.device import float32_precision, resolve_device
 from act3d_tpu_torch.eval import main as eval_main
 from act3d_tpu_torch.eval.actioner import Actioner
@@ -168,6 +205,7 @@ from act3d_tpu_torch.train.flagship import (
     make_keypose_model,
 )
 from act3d_tpu_torch.train.losses import KeyposeLossAndMetrics
+from act3d_tpu_torch.utils.registry import get_gripper_loc_bounds
 from act3d_tpu_torch.utils.testing import synthetic_keypose_batch, synthetic_trajectory_batch
 
 ATOL, RTOL = 2e-5, 1e-4
@@ -235,6 +273,24 @@ TRAJECTORY_CLI_FLAGS = [
     "--use_instruction", "1", "--cache_size", "600", "--image_rescale", "0.75,1.25",
     "--exp_log_dir", "exp",
 ]
+
+# The training host path: the same CLIs with JAX's host-path flags, the
+# workers from host_workers(); median host-clock times over HOST_REPEATS
+# calls; WIRE_TOL = the u16 depth step times |K^-1 u| (tests/test_depthwire.py).
+def keypose_host_path_flags(workers):
+    return ["--num_workers", str(workers), "--device_augment", "1", "--compact_transfer", "1",
+            "--instr_mode", "ids"]
+
+
+def trajectory_host_path_flags(workers):
+    return ["--wire", "depth", "--instr_mode", "ids", "--num_workers", str(workers)]
+
+
+HOST_REPEATS = 5
+WIRE_TOL = 5e-4
+# steps of the host-path CLI phases, one evaluation at the end: the second
+# half runs after the workers' prefilled slots are used up
+HOST_PATH_CLI_ITERS = 24
 
 # The eval CLI over the sim-free backend; every other flag is its default
 # (act3d_tpu/eval/main.py's widths, as ACT3D_CFG / PLANNER_CFG).  With
@@ -1196,9 +1252,15 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
         assert again[0]["launches"] == per_step and np.isfinite(again[0]["loss"]), again
     warm = [st["step_s"] for st in steps[1:]]
     waits = [st["data_wait_s"] for st in steps]
+    # before the first evaluation the feeder has no pause to fill its queue
+    # in; from step iters // 2 the sampler's prefilled slots are used up
+    steady = dict(before_eval=float(np.mean(waits[1:val_freq])) * 1e3,
+                  second_half=float(np.mean(waits[iters // 2:])) * 1e3)
     print(f"{name}: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps 1-{iters - 1}; "
           f"min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f}); feeder wait per step "
-          f"mean {np.mean(waits) * 1e3:.1f} ms (steps 1-: {np.mean(waits[1:]) * 1e3:.1f} ms), "
+          f"mean {np.mean(waits) * 1e3:.1f} ms (steps 1-: {np.mean(waits[1:]) * 1e3:.1f} ms; "
+          f"steps 1-{val_freq - 1}: {steady['before_eval']:.1f} ms; steps {iters // 2}-: "
+          f"{steady['second_half']:.1f} ms), "
           f"max {max(waits) * 1e3:.1f} ms; peak memory {peak / 2**20:.1f} MiB; evaluations "
           + ", ".join(f"{ev['seconds']:.2f} s ({metric} {ev['val'][metric]:.4f})"
                       for ev in evals)
@@ -1207,6 +1269,7 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
     return dict(steps=steps, evals=[dict(step=ev["step"], seconds=ev["seconds"],
                                          metric=ev["val"][metric]) for ev in evals],
                 warm_step_ms=np.mean(warm) * 1e3, data_wait_ms=np.mean(waits) * 1e3,
+                data_wait_steady_ms=steady,
                 peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
 
 
@@ -1305,6 +1368,283 @@ def phase_cli_eval(card):
                 offline_keysteps=offline_keysteps, peak_memory_bytes=peak,
                 resident_memory_bytes=resident, seconds=seconds,
                 offline_seconds=offline_s, launches_per_keystep=expected)
+
+
+class _ScriptedRng:
+    """np.random.Generator stand-in that hands out scripted draws, to run the
+    host Resize at chosen (scale, i, j)."""
+
+    def __init__(self, uniforms, integers):
+        self._uniforms, self._integers = list(uniforms), list(integers)
+
+    def uniform(self, *args):
+        return self._uniforms.pop(0)
+
+    def integers(self, *args):
+        return self._integers.pop(0)
+
+
+def child_processes() -> list:
+    """(pid, command line) of every process whose parent is this one."""
+    me, found = str(os.getpid()), []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:  # the command may hold ")": the fields after its last one
+            ppid = (entry / "stat").read_text().rsplit(")", 1)[1].split()[1]
+            if ppid == me:
+                cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ").decode()
+                found.append((int(entry.name), cmd[:160]))
+        except OSError:  # exited while read
+            continue
+    return found
+
+
+def host_workers() -> int:
+    """Worker processes of the host-path CLI phases: half the machine's
+    cores (at least 2), leaving the rest to the training loop's main and
+    feeder threads."""
+    return max(2, (os.cpu_count() or 4) // 2)
+
+
+def cli_dataset_args(tree, ipath, model, **over):
+    """The RLBenchDataset arguments of a training CLI's training set at its
+    reference script's flags (scripts/train_act3d.sh: batch 16, no
+    trajectory; scripts/train_trajectory.sh: batch 22, dense interpolation
+    to 50, action_dim 7), seeded SEED."""
+    args = dict(root=tree, instructions=pickle.loads(ipath.read_bytes()),
+                taskvar=[("pick_and_lift", 0)], cameras=CAMERAS, cache_size=100,
+                training=True, image_rescale=(0.75, 1.25),
+                gripper_loc_bounds=get_gripper_loc_bounds(str(CLI_BOUNDS), buffer=0.04,
+                                                          task="pick_and_lift"),
+                seed=SEED)
+    if model == "trajectory":
+        args.update(return_low_lvl_trajectory=True, dense_interpolation=True,
+                    interpolation_length=50, action_dim=7)
+    else:
+        args.update(action_dim=8)
+    args.update(over)
+    return args
+
+
+def _median_ms(fn, repeats):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _nbytes(batch):
+    return sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray))
+
+
+def _pinned(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def _h2d(pinned, dev):
+    out = {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def _max_err(got, want) -> float:
+    return float((got.detach().cpu().to(torch.float64) - torch.as_tensor(want).to(torch.float64))
+                 .abs().max())
+
+
+def _proc_memory_kib(pid) -> dict:
+    """A process's resident memory (VmRSS) and its anonymous part (RssAnon:
+    what a forked worker does not share with the fork server), KiB, from
+    /proc/<pid>/status; None where the kernel does not report a field."""
+    fields = {}
+    try:
+        lines = Path(f"/proc/{pid}/status").read_text().splitlines()
+    except FileNotFoundError:  # a sandboxed kernel without it
+        lines = []
+    for line in lines:
+        name, _, value = line.partition(":")
+        if name in ("VmRSS", "RssAnon"):
+            fields[name] = int(value.split()[0])
+    return {k: fields.get(k) for k in ("VmRSS", "RssAnon")}
+
+
+def _mean_mib(memory, key):
+    values = [m[key] for m in memory if m[key] is not None]
+    return f"{np.mean(values) / 1024:.0f} MiB" if values else "not reported"
+
+
+def host_path_checks(dev, card, tree, ipath):
+    """The host path's device-side code on the card at the keypose CLI's
+    shapes (batch 16, 3 cameras at 256^2), against the CPU and against the
+    host batch of the same draws."""
+    b = 16
+    rotate = dict(point_cloud_rotate_yaw_range=15.0)  # exercise the extrinsic fold
+    host = RLBenchDataset(**cli_dataset_args(tree, ipath, "keypose", **rotate)).sample_batch(b)
+    wire = RLBenchDataset(**cli_dataset_args(tree, ipath, "keypose", wire="depth",
+                                             **rotate)).sample_batch(b)
+    assert "depth" in wire and "aug_rows" in wire, sorted(wire)
+    for k in ("action", "curr_gripper"):  # the same draws
+        assert np.array_equal(wire[k], host[k]), k
+    errs = {}
+    # expand_batch's conversions (uint8, uint16) on the card against the CPU
+    for name, batch in (("xyz", compact_batch(host)), ("depth", compact_batch(wire))):
+        tensors = {k: v for k, v in batch.items() if k != "task"}
+        cpu, gpu = expand_batch(to_tensors(tensors, "cpu")), expand_batch(to_tensors(tensors, dev))
+        for k in ("rgbs", "pcds"):
+            assert gpu[k].dtype == torch.float32 and gpu[k].device.type == dev.type, k
+            errs[f"expand_{name}_{k}_card_vs_cpu"] = _max_err(gpu[k], cpu[k])
+        errs[f"expand_{name}_pcds_vs_host"] = _max_err(gpu["pcds"], host["pcds"])
+    # the depth wire's gathers and reconstruction at float32 depth
+    rows, cols = (torch.from_numpy(wire[k]).to(dev) for k in ("aug_rows", "aug_cols"))
+    errs["gather_hw_rgbs_vs_host"] = _max_err(
+        gather_hw(torch.from_numpy(wire["rgbs"]).to(dev), rows, cols), host["rgbs"])
+    errs["reconstruct_pcds_vs_host"] = _max_err(
+        reconstruct_pcds(*(torch.from_numpy(wire[k]).to(dev)
+                           for k in ("depth", "cam_intr", "cam_c2w")), rows=rows, cols=cols),
+        host["pcds"])
+    # device_augment's resize at the host Resize's draws, one per sample
+    plain = RLBenchDataset(**cli_dataset_args(tree, ipath, "keypose",
+                                              augment_host=False)).sample_batch(b)
+    rng = np.random.default_rng(SEED)
+    scales = rng.uniform(0.75, 1.25, b)
+    size = plain["rgbs"].shape[-1]
+    crops = [[int(rng.integers(0, max(int(size * s) - size, 0) + 1)) for _ in range(2)]
+             for s in scales]
+    want = {k: np.stack([Resize((s, s), _ScriptedRng([s], c))(**{k: plain[k][i]})[k]
+                         for i, (s, c) in enumerate(zip(scales, crops))])
+            for k in ("rgbs", "pcds")}
+    got = resize_with_params({k: torch.from_numpy(plain[k]).to(dev) for k in want},
+                             torch.from_numpy(scales).to(dev),
+                             torch.tensor([c[0] for c in crops], device=dev),
+                             torch.tensor([c[1] for c in crops], device=dev))
+    for k in want:
+        errs[f"device_resize_{k}_vs_host"] = _max_err(got[k], want[k])
+    torch.cuda.synchronize()
+    print("host_path checks at batch 16, 3 cameras at 256^2: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + f" | {card}", flush=True)
+    for k, v in errs.items():
+        if k.endswith("_card_vs_cpu"):
+            # conversions exact; the reconstruction's sums within float32 rounding
+            assert v <= (1e-5 if k == "expand_depth_pcds_card_vs_cpu" else 0.0), (k, v)
+        elif k.startswith(("gather_hw", "device_resize")):
+            assert v == 0.0, (k, v)
+        else:  # the u16 wires and the depth wire's reconstruction
+            assert v <= WIRE_TOL, (k, v)
+    return errs
+
+
+def host_split(dev, card, tree, ipath):
+    """Where a host batch's time goes on this machine: median host-clock
+    ms of sample_batch at the keypose (16) and trajectory (22) CLIs' flags
+    with the host Resize on and off, wire pcd and depth, and (trajectory)
+    dense interpolation on and off; the compact encode; the pinned copy and
+    the host -> device copy of each batch; sample_batch in a thread while
+    the main thread dispatches small CUDA ops (the GIL), and the
+    multi-process sampler's batches per second with host_workers()."""
+    rows = []
+    configs = [("keypose", 16, {}), ("keypose", 16, dict(augment_host=False)),
+               ("keypose", 16, dict(wire="depth")),
+               ("keypose", 16, dict(wire="depth", instr_mode="ids")),
+               ("trajectory", 22, {}), ("trajectory", 22, dict(augment_host=False)),
+               ("trajectory", 22, dict(dense_interpolation=False)),
+               ("trajectory", 22, dict(wire="depth", instr_mode="ids"))]
+    for model, b, over in configs:
+        ds = RLBenchDataset(**cli_dataset_args(tree, ipath, model, **over))
+        batch = ds.sample_batch(b)  # loads the episodes into the cache
+        sample_ms = _median_ms(lambda: ds.sample_batch(b), HOST_REPEATS)
+        compact = compact_batch(batch)
+        compact_ms = _median_ms(lambda: compact_batch(batch), HOST_REPEATS)
+        shipped = compact if over.get("wire") == "depth" else batch
+        pin_ms = _median_ms(lambda: _pinned(shipped), HOST_REPEATS)
+        pinned = _pinned(shipped)
+        h2d_ms = _median_ms(lambda: _h2d(pinned, dev), HOST_REPEATS)
+        row = dict(model=model, batch=b, **{k: str(v) for k, v in over.items()},
+                   sample_batch_ms=sample_ms, compact_ms=compact_ms,
+                   f32_bytes=_nbytes(batch), compact_bytes=_nbytes(compact),
+                   shipped_bytes=_nbytes(shipped), pin_ms=pin_ms, h2d_ms=h2d_ms)
+        rows.append(row)
+        print(f"host_path split {model} b{b} {over or 'defaults'}: sample_batch "
+              f"{sample_ms:.1f} ms, compact_batch {compact_ms:.1f} ms, bytes f32 "
+              f"{row['f32_bytes'] / 1e6:.2f} MB / compact {row['compact_bytes'] / 1e6:.2f} MB; "
+              f"shipped {row['shipped_bytes'] / 1e6:.2f} MB: pin {pin_ms:.1f} ms, H2D "
+              f"{h2d_ms:.2f} ms (medians of {HOST_REPEATS}) | {card}", flush=True)
+
+    ds = RLBenchDataset(**cli_dataset_args(tree, ipath, "keypose"))
+    ds.sample_batch(16)
+    times, done = [], threading.Event()
+
+    def draw():
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            ds.sample_batch(16)
+            times.append(time.perf_counter() - t0)
+        done.set()
+
+    thread = threading.Thread(target=draw)
+    x = torch.zeros(1024, device=dev)
+    dispatched = 0
+    thread.start()
+    while not done.is_set():  # host dispatch, as a training step's
+        x.add_(1.0)
+        dispatched += 1
+    thread.join()
+    torch.cuda.synchronize()
+    gil = dict(sample_batch_ms_in_thread=float(np.median(times)) * 1e3,
+               main_thread_dispatches=dispatched)
+    print(f"host_path GIL: keypose sample_batch in a thread while the main thread dispatched "
+          f"{dispatched} small CUDA ops: {gil['sample_batch_ms_in_thread']:.1f} ms (alone "
+          f"{rows[0]['sample_batch_ms']:.1f} ms) | {card}", flush=True)
+
+    workers = host_workers()
+    samplers = []
+    # the host-path CLI phases' datasets: keypose with the Resize on the card,
+    # trajectory on the depth wire, both with instruction ids; the workers
+    # compact-encode
+    for model, b, over in (("keypose", 16, dict(augment_host=False, instr_mode="ids")),
+                           ("trajectory", 22, dict(wire="depth", instr_mode="ids"))):
+        t0 = time.perf_counter()
+        with MultiProcessSampler(rlbench_dataset_factory(
+                cli_dataset_args(tree, ipath, model, **over), SEED, compact=True), batch_size=b,
+                num_workers=workers) as sampler:
+            for _ in range(workers):
+                next(sampler)
+            first_s = time.perf_counter() - t0
+            n = 3 * workers
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(sampler)
+            per_batch_ms = (time.perf_counter() - t0) / n * 1e3
+            memory = [_proc_memory_kib(p.pid) for p in sampler._procs]
+        samplers.append(dict(model=model, batch=b, workers=workers, first_batches_s=first_s,
+                             steady_ms_per_batch=per_batch_ms, worker_memory_kib=memory))
+        print(f"host_path sampler {model} b{b} {over}: {workers} workers, first {workers} "
+              f"batches after {first_s:.1f} s, then {per_batch_ms:.1f} ms per batch over {n}; "
+              f"per worker resident {_mean_mib(memory, 'VmRSS')}, anonymous "
+              f"{_mean_mib(memory, 'RssAnon')} | {card}", flush=True)
+    probe = subprocess.run(
+        [sys.executable, "-c", "import resource, time; t = time.perf_counter(); "
+         "import act3d_tpu_torch.data.dataset; print(time.perf_counter() - t, "
+         "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)"],
+        cwd=REPO, capture_output=True, text=True, check=True).stdout.split()
+    worker_import = dict(import_s=float(probe[0]), max_rss_kib=int(probe[1]))
+    print(f"host_path worker start: importing act3d_tpu_torch.data.dataset (torch with it) "
+          f"takes {worker_import['import_s']:.2f} s and {worker_import['max_rss_kib'] / 1024:.0f} "
+          f"MiB resident in a fresh process | {card}", flush=True)
+    return dict(split=rows, gil=gil, samplers=samplers, worker_import=worker_import)
+
+
+def phase_host_path(dev, card):
+    """The host path on this machine: checks (host_path_checks), then the
+    time split (host_split), over a fixture tree of the CLIs'."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_path_") as tmp:
+        tree, ipath = write_fixture_tree(Path(tmp), CLI_EPISODES)
+        errs = host_path_checks(dev, card, tree, ipath)
+        split = host_split(dev, card, tree, ipath)
+    return dict(checks=errs, **split)
 
 
 def print_plans(serve_rows, train_fwd, train_bwd, kp_fwd, kp_bwd):
@@ -1435,6 +1775,33 @@ def main() -> int:
                      main_trajectory.main, TRAJECTORY_CLI_FLAGS, 4, 4, per_step_traj,
                      "traj_action_mse")
     cli_eval = drive("cli_eval", phase_cli_eval, card)
+    host = phase_host_path(dev, card)
+    workers = host_workers()
+    print(f"host-path CLI phases: {workers} workers (os.cpu_count() {os.cpu_count()})",
+          flush=True)
+    cli_kp_hp = drive("cli_keypose_host_path", phase_cli, dev, card, "cli_keypose_host_path",
+                      main_keypose.main, KEYPOSE_CLI_FLAGS + keypose_host_path_flags(workers),
+                      HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS, per_step_kp,
+                      "mean/pos_l2_final")
+    cli_traj_hp = drive("cli_trajectory_host_path", phase_cli, dev, card,
+                        "cli_trajectory_host_path", main_trajectory.main,
+                        TRAJECTORY_CLI_FLAGS + trajectory_host_path_flags(workers),
+                        HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS, per_step_traj,
+                        "traj_action_mse")
+    for single, multi in ((cli_kp, cli_kp_hp), (cli_traj, cli_traj_hp)):
+        print(f"feeder wait per step: one feeder thread "
+              f"{single['data_wait_steady_ms']['before_eval']:.1f} ms (steps before the first "
+              f"evaluation), warm step {single['warm_step_ms']:.1f} ms, peak "
+              f"{single['peak_memory_bytes'] / 2**20:.1f} MiB; {workers} workers + host-path "
+              f"flags {multi['data_wait_steady_ms']['second_half']:.1f} ms (steps "
+              f"{HOST_PATH_CLI_ITERS // 2}-), warm step {multi['warm_step_ms']:.1f} ms, peak "
+              f"{multi['peak_memory_bytes'] / 2**20:.1f} MiB | {card}", flush=True)
+    # the samplers' fork server (which holds torch) and resource tracker
+    # would outlive this process by seconds: stop them, and leave nothing
+    stop_helper_processes()
+    left = child_processes()
+    print(f"child processes left after the last phase: {left or 'none'}", flush=True)
+    assert not left, left
     for phase, counts in main_path.items():
         print(f"main path {phase}: launches {counts}", flush=True)
         assert counts["attention_core"] == counts["scatter_rows_chunked"] == 0, counts
@@ -1544,7 +1911,10 @@ def main() -> int:
     for kernel in kernels:
         kernel["main_path_launches"] = {phase: c[kernel["name"]]
                                         for phase, c in main_path.items()}
-    kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj, cli_eval=cli_eval)
+    kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj, cli_eval=cli_eval,
+                      cli_keypose_host_path=dict(cli_kp_hp, workers=workers),
+                      cli_trajectory_host_path=dict(cli_traj_hp, workers=workers),
+                      host_path=host)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1553,4 +1923,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:  # also when a phase failed
+        stop_helper_processes()
+    sys.exit(code)

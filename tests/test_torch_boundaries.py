@@ -3,7 +3,10 @@
 * ``act3d_tpu_torch`` (every submodule) and ``chip_smoke.py`` import with
   ``jax`` made unimportable, and load nothing of ``act3d_tpu``; the eval
   CLI and the RLBench loop also import without OpenCV, RLBench and PyRep,
-  which the card's machine lacks.
+  which the card's machine lacks; every module imports without matplotlib
+  and tensorboard (the host path's viz and logger import them inside
+  functions), and a CLI asked for ``--use_tensorboard 1`` without
+  tensorboard raises ImportError before it writes anything.
 * The entry points run on the card by default: without one they raise
   instead of drifting to the CPU, and ``chip_smoke.py`` exits non-zero
   without printing a result.
@@ -46,6 +49,33 @@ print("ok")
 """
 
 
+_IMPORT_WITHOUT_PLOTS = r"""
+import importlib, pkgutil, sys, tempfile
+from pathlib import Path
+for name in ("jax", "flax", "matplotlib", "tensorboard", "PIL"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import act3d_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(act3d_tpu_torch.__path__, "act3d_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+for name in ("data.compact", "data.depthwire", "data.device_augment", "data.pipeline",
+             "train.viz"):
+    assert "act3d_tpu_torch." + name in names, name
+assert "torch.utils.tensorboard" not in sys.modules
+from act3d_tpu_torch.train import main_keypose
+tmp = Path(tempfile.mkdtemp())
+try:
+    main_keypose.main(["--base_log_dir", str(tmp), "--device", "cpu", "--use_tensorboard", "1"])
+except ImportError as e:
+    assert "tensorboard" in str(e), e
+else:
+    raise AssertionError("no ImportError")
+assert not any(tmp.iterdir())
+print("ok")
+"""
+
+
 def _run(args, cwd, **kw):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -57,6 +87,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 15
+
+
+def test_host_path_imports_plots_and_tensorboard_only_inside_functions():
+    proc = _run(["-c", _IMPORT_WITHOUT_PLOTS], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
 
 
 def test_eval_cli_imports_without_opencv_or_the_simulator():

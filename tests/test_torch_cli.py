@@ -5,10 +5,14 @@ the port's own fixture writer, at the basic widths of
 ``scripts/drive_fixture_clis.py`` (128^2, one camera, emb 12 / 24, 32 ghost
 points, one layer per attention stack, 5 diffusion steps, ``--train_iters 2
 --val_freq 2``): finite losses, ``best.pt`` / ``last.pt`` / ``hparams.json``
-/ ``metrics.jsonl``, a relaunch that resumes at step 2, ``--eval_only``,
-and ``NotImplementedError`` for each kind of flag the port does not have
-yet.  Without a card, the default device raises.  Nothing here imports
-JAX.
+/ ``metrics.jsonl``, a relaunch that resumes at step 2, ``--eval_only``;
+each host-path flag (``--num_workers 2``, ``--device_augment``,
+``--compact_transfer``, ``--wire depth``, ``--instr_mode ids``,
+``--use_tensorboard``) and the two combinations chip_smoke runs train to a
+checkpoint with the batches that flag ships; ``--device_augment 1 --wire
+depth`` raises ValueError, as in JAX; and ``NotImplementedError`` for each
+kind of flag the port does not have yet.  Without a card, the default
+device raises.  Nothing here imports JAX.
 """
 
 import json
@@ -29,6 +33,16 @@ TRAJECTORY = ["--embedding_dim", "24", "--num_query_cross_attn_layers", "1",
               "--num_vis_ins_attn_layers", "1", "--diffusion_timesteps", "5", "--use_goal", "1",
               "--dense_interpolation", "1", "--interpolation_length", "12"]
 CLIS = {"keypose": (main_keypose, KEYPOSE), "trajectory": (main_trajectory, TRAJECTORY)}
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Two intra-op threads per CLI run: the suite runs beside other test
+    processes, where more threads only contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -95,17 +109,98 @@ def test_cli_trains_checkpoints_resumes_and_evaluates(common, steps_taken, name)
     assert metrics and all(math.isfinite(v) for v in metrics.values())
 
 
+# (name, CLI, flags): each host-path flag alone, then the two combinations
+# chip_smoke runs on the card
+HOST_PATH = [
+    ("num_workers", "keypose", ["--num_workers", "2"]),
+    ("device_augment", "keypose", ["--device_augment", "1",
+                                   "--point_cloud_rotate_yaw_range", "10.0"]),
+    ("compact_transfer", "keypose", ["--compact_transfer", "1"]),
+    ("wire_depth", "trajectory", ["--wire", "depth"]),
+    ("instr_mode_ids", "keypose", ["--instr_mode", "ids"]),
+    ("use_tensorboard", "trajectory", ["--use_tensorboard", "1"]),
+    ("keypose_host_path", "keypose", ["--num_workers", "2", "--device_augment", "1",
+                                      "--compact_transfer", "1", "--instr_mode", "ids"]),
+    ("trajectory_host_path", "trajectory", ["--wire", "depth", "--instr_mode", "ids",
+                                            "--use_tensorboard", "1"]),
+]
+
+
+@pytest.fixture
+def host_path_calls(monkeypatch):
+    """Counts the sampler's batches and the device resizes, and records the
+    dtypes of every batch Trainer.step takes."""
+    from act3d_tpu_torch.data import device_augment, pipeline
+
+    calls = {"sampler": 0, "device_resize": 0, "batches": []}
+    sampler_next, resize, step = (pipeline.MultiProcessSampler.__next__,
+                                  device_augment.resize_sample, Trainer.step)
+
+    def counted_next(self):
+        calls["sampler"] += 1
+        return sampler_next(self)
+
+    def counted_resize(*args, **kwargs):
+        calls["device_resize"] += 1
+        return resize(*args, **kwargs)
+
+    def recorded(self, batch):
+        out = step(self, batch)
+        calls["batches"].append(({k: v.dtype for k, v in batch.items()}, float(out["loss"])))
+        return out
+
+    monkeypatch.setattr(pipeline.MultiProcessSampler, "__next__", counted_next)
+    monkeypatch.setattr(device_augment, "resize_sample", counted_resize)
+    monkeypatch.setattr(Trainer, "step", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("case,name,flags", HOST_PATH, ids=[c[0] for c in HOST_PATH])
+def test_cli_trains_under_each_host_path_flag(common, host_path_calls, case, name, flags):
+    tmp, args = common
+    main, widths = CLIS[name]
+    log_dir = tmp / "logs" / "exp" / case
+    out = main.main(args + widths + ["--run_log_dir", case, "--train_iters", "2", *flags])
+    steps = host_path_calls["batches"]
+    assert len(steps) == 2 and all(math.isfinite(loss) for _, loss in steps)
+    (evaluation,) = out["evals"]
+    assert all(math.isfinite(v) for v in evaluation["val"].values()), evaluation
+    assert (log_dir / "best.pt").exists() and (log_dir / "last.pt").exists()
+    hparams = json.loads((log_dir / "hparams.json").read_text())
+    dtypes = steps[-1][0]
+    given = dict(zip(flags[::2], flags[1::2]))
+    for flag, value in given.items():
+        assert str(hparams[flag[2:]]) == value, flag
+    workers = "--num_workers" in given
+    assert (host_path_calls["sampler"] >= 2) == workers, host_path_calls
+    assert (host_path_calls["device_resize"] == 2) == ("--device_augment" in given)
+    depth = "--wire" in given
+    if "--compact_transfer" in given or depth:  # the depth wire ships compact too
+        assert dtypes["rgbs"] == torch.uint8
+        assert dtypes["depth" if depth else "pcds"] == torch.uint16
+    else:
+        assert dtypes["rgbs"] == torch.float32
+    assert ("pcds" not in dtypes) == depth and ("aug_rows" in dtypes) == depth
+    ids = "--instr_mode" in given
+    assert ("instr_id" in dtypes and "instr" not in dtypes) == ids
+    events = list(log_dir.glob("events.out.tfevents.*"))
+    assert bool(events) == ("--use_tensorboard" in given)
+
+
+def test_cli_device_augment_with_the_depth_wire_raises_as_jax(common):
+    tmp, args = common
+    main, widths = CLIS["trajectory"]
+    with pytest.raises(ValueError, match="does not compose with --wire depth"):
+        main.main(args + widths + ["--run_log_dir", "augment_depth", "--train_iters", "2",
+                                   "--device_augment", "1", "--wire", "depth"])
+    assert not (tmp / "logs" / "exp" / "augment_depth" / "last.pt").exists()
+
+
 # one flag of each kind the port rejects, with the CLI it is given to
 REJECTED = [
     ("keypose", ["--num_devices", "2"], "num_devices"),
     ("keypose", ["--fsdp", "2"], "fsdp"),
-    ("keypose", ["--compact_transfer", "1"], "compact_transfer"),
-    ("keypose", ["--wire", "depth"], "wire"),
-    ("keypose", ["--instr_mode", "ids"], "instr_mode"),
-    ("keypose", ["--device_augment", "1"], "device_augment"),
-    ("keypose", ["--num_workers", "2"], "num_workers"),
     ("trajectory", ["--mixed_precision", "1"], "mixed_precision"),
-    ("trajectory", ["--use_tensorboard", "1"], "use_tensorboard"),
     ("trajectory", ["--backbone", "resnet"], "backbone"),
     ("keypose", ["--rotation_parametrization", "6D"], "rotation_parametrization"),
     ("keypose", ["--weight_tying", "0"], "weight_tying"),

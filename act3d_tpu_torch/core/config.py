@@ -66,9 +66,10 @@ class CommonConfig:
     # traj_action_mse for trajectory (main_trajectory.py:274).
     best_checkpoint_metric: str = "default"
 
-    # Host path and deployment flags of the JAX package.  num_devices,
-    # fsdp and mixed_precision raise at values other than these defaults
-    # (see _reject_unported).
+    # Host path and deployment flags of the JAX package.  num_devices and
+    # fsdp raise at values other than these defaults (see _reject_unported);
+    # mixed_precision 1 trains in bf16 with float32 master weights
+    # (train/flagship.py).
     num_devices: int = -1  # -1: all available (one card)
     fsdp: int = 1
     compact_transfer: int = 0  # u8 rgb / u16 pcd on the wire (data/compact.py)
@@ -165,7 +166,6 @@ def _reject_unported(cfg: CommonConfig) -> None:
     rules = [
         (cfg.num_devices > 1 or cfg.fsdp > 1, "--num_devices > 1 / --fsdp > 1",
          'ROADMAP Queue A, item "parallel"'),
-        (cfg.mixed_precision, "--mixed_precision", 'ROADMAP Queue A, item "bf16 training"'),
         (cfg.backbone != "clip", f"--backbone {cfg.backbone}",
          'ROADMAP Queue A, item "TorchResNet50"'),
         (cfg.device not in ("cuda", "cpu"), f"--device {cfg.device}", "cuda or cpu only"),

@@ -46,12 +46,27 @@
 //     repeated gives the same bits.
 //   * ragged L and S edges are masked in the kernel (p = 0 past the last
 //     key, zero rows past the last row; nothing written for either).
+//
+// The bf16 entry (act3d_fused_mha_bwd_bf16, --mixed_precision 1 training)
+// takes q, k, v, dO and writes dq, dk, dv in bf16; stats, delta and the
+// workspace stay float32.  It rounds where the TPU kernel's _mha_bwd_body
+// does on bf16 inputs, with ex = exp(s - m) unnormalised and r = 1 / l:
+//     dof = bf16(dO r / (1 - rate)),  dv_j = sum_i bf16(ex_ij keep_ij) dof_i
+//     ds_ij = bf16(ex_ij (keep_ij dO_i . v_j / (1 - rate) - delta_i))
+//     dq_i = (sum_j ds_ij k_j) r_i,  dk_j = sum_i ds_ij bf16(q_i r_i)
+// with every product on mma.sync m16n8k16 bf16 (mma_bf16.cuh) and float32
+// sums.  Same grid, plan, slabs and summing kernel as the float32 kernel
+// (the slabs float32, rounded to bf16 once summed); rows go 16 at a time,
+// since two 8-row score fragments make one k = 16 operand.  K, V, q and
+// dO are staged row-major, K^T and the scaled q and dO transposed, so
+// every B operand is one 32-bit shared-memory word.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -326,9 +341,10 @@ mha_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // out[x] = sum over s of parts[s * n + x], in slab order (and the same for
 // a second array when out2 is given).  The slabs are read in batches of
 // kBatch loads in flight, then added in order.
-__global__ void sum_slabs_kernel(const float* __restrict__ parts, float* __restrict__ out,
+template <typename OutT>
+__global__ void sum_slabs_kernel(const float* __restrict__ parts, OutT* __restrict__ out,
                                  const float* __restrict__ parts2,
-                                 float* __restrict__ out2, size_t n, int nslab) {
+                                 OutT* __restrict__ out2, size_t n, int nslab) {
   constexpr int kBatch = 8;
   for (size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x; x < n;
        x += (size_t)gridDim.x * blockDim.x) {
@@ -349,12 +365,13 @@ __global__ void sum_slabs_kernel(const float* __restrict__ parts, float* __restr
         }
       }
     }
-    out[x] = a;
-    if (out2) out2[x] = c;
+    act3d_store(out + x, a);
+    if (out2) act3d_store(out2 + x, c);
   }
 }
 
-void sum_slabs(const float* parts, float* out, const float* parts2, float* out2,
+template <typename OutT>
+void sum_slabs(const float* parts, OutT* out, const float* parts2, OutT* out2,
                size_t n, int nslab, cudaStream_t stream) {
   const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
   sum_slabs_kernel<<<blocks, 256, 0, stream>>>(parts, out, parts2, out2, n, nslab);
@@ -382,9 +399,9 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v, const floa
   kernel<<<dim3(key_tiles * nsplit, H, B), 32 * key_warps, smem, stream>>>(
       q, k, v, dout, stats, delta, mask, dq, dk, dv, dq_parts, dkv_parts, B, L, S, H, d,
       key_tiles, nsplit, rows_per_split, rt, drop);
-  if (dq_parts) sum_slabs(dq_parts, dq, nullptr, nullptr, ble, key_tiles, stream);
+  if (dq_parts) sum_slabs<float>(dq_parts, dq, nullptr, nullptr, ble, key_tiles, stream);
   if (dkv_parts) {
-    sum_slabs(dkv_parts, dk, dkv_parts + nsplit * bse, dv, bse, nsplit, stream);
+    sum_slabs<float>(dkv_parts, dk, dkv_parts + nsplit * bse, dv, bse, nsplit, stream);
   }
   return cudaGetLastError();
 }
@@ -401,6 +418,337 @@ cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
   }
   return launch_dp<DP, false>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B, L,
                               S, H, d, key_warps, rows_per_split, nsplit, drop, stream);
+}
+
+// ---------------------------------------------------------------- bf16
+size_t smem_bytes_bf16(int dp, int key_warps, int rt) {
+  const int kb = 16 * key_warps;
+  const size_t halves = (size_t)2 * kb * (dp + 8) + (size_t)dp * (kb + 8) +
+                        (size_t)2 * rt * (dp + 8) + (size_t)2 * dp * (rt + 8) +
+                        (size_t)rt * (kb + 8);
+  return halves * sizeof(uint16_t) + 4 * rt * sizeof(float) + kb;
+}
+
+// mha_bwd_kernel's grid and block at bf16 (see the header comment).
+// dq_parts == nullptr: write dq (bf16), else the tile's float32 slab;
+// dkv_parts == nullptr: write dk/dv (bf16), else the split's slabs.
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(32 * kMaxKeyWarps)
+mha_bwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                    const float* __restrict__ stats, const float* __restrict__ delta,
+                    const uint8_t* __restrict__ mask, uint16_t* __restrict__ dq,
+                    uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                    float* __restrict__ dq_parts, float* __restrict__ dkv_parts, int B,
+                    int L, int S, int H, int d, int key_tiles, int nsplit,
+                    int rows_per_split, int rt, Dropout drop) {
+  constexpr int SK = DP + 8;  // [key or row][dim] tiles
+  constexpr int KS = DP / 16; // k-steps over dims
+  constexpr int NO = DP / 8;  // n-tiles over dims
+  const int kw = blockDim.x >> 5;
+  const int KB = 16 * kw;
+  const int SKB = KB + 8;  // [dim][key] and [row][key] tiles
+  const int SR = rt + 8;   // [dim][row] tiles
+  extern __shared__ __align__(16) uint16_t smem16[];
+  uint16_t* k_s = smem16;             // [KB][SK] k
+  uint16_t* v_s = k_s + KB * SK;      // [KB][SK] v
+  uint16_t* kt_s = v_s + KB * SK;     // [DP][SKB] k^T
+  uint16_t* q_s = kt_s + DP * SKB;    // [rt][SK] q
+  uint16_t* o_s = q_s + rt * SK;      // [rt][SK] dO
+  uint16_t* qft_s = o_s + rt * SK;    // [DP][SR] bf16(q r)^T
+  uint16_t* oft_s = qft_s + DP * SR;  // [DP][SR] bf16(dO r / (1 - rate))^T
+  uint16_t* ds_s = oft_s + DP * SR;   // [rt][SKB] bf16(ds)
+  float* m_s = reinterpret_cast<float*>(ds_s + rt * SKB);  // [rt] m
+  float* r_s = m_s + rt;                                   //      1 / l
+  float* dl_s = r_s + rt;                                  //      delta
+  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dl_s + rt); //      row keys
+  uint8_t* km_s = reinterpret_cast<uint8_t*>(rk_s + rt);   // [KB] mask
+
+  const int E = H * d;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tile = blockIdx.x % key_tiles;
+  const int split = blockIdx.x / key_tiles;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int ksu = (d + 15) >> 4;
+  const int nou = (d + 7) >> 3;
+  const int k0 = tile * KB;
+  const int nk = min(KB, S - k0);
+  const int nk16 = (nk + 15) & ~15;
+  const bool warp_keys = warp * 16 < nk;
+  const float inv_keep = DROPOUT ? drop.inv_keep : 1.f;
+
+  const size_t bse = (size_t)B * S * E;
+  float* dq_slab = dq_parts ? dq_parts + (size_t)tile * B * L * E : nullptr;
+  float* dk_slab = dkv_parts ? dkv_parts + (size_t)split * bse : nullptr;
+  float* dv_slab = dkv_parts ? dkv_parts + (size_t)(nsplit + split) * bse : nullptr;
+
+  const uint16_t* k_b = k + ((size_t)b * S + k0) * E + h * d;
+  const uint16_t* v_b = v + ((size_t)b * S + k0) * E + h * d;
+  act3d_stage_bf16<DP>(k_b, E, nk, KB, d, k_s, SK, kt_s, SKB);  // zero rows past S
+  act3d_stage_bf16<DP>(v_b, E, nk, KB, d, v_s, SK, nullptr, 0);
+  for (int j = threadIdx.x; j < KB; j += blockDim.x) {
+    km_s[j] = (j < nk && mask) ? mask[(size_t)b * S + k0 + j] : 0;
+  }
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int on = 0; on < NO; ++on) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dka[on][i] = 0.f;
+      dva[on][i] = 0.f;
+    }
+  }
+
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(L, r_begin + rows_per_split);
+  const uint16_t* q_b = q + (size_t)b * L * E + h * d;
+  const uint16_t* o_b = dout + (size_t)b * L * E + h * d;
+
+  for (int i0 = r_begin; i0 < r_end; i0 += rt) {
+    const int n = min(rt, r_end - i0);
+    const int n16 = (n + 15) & ~15;
+    __syncthreads();  // the previous row tile is no longer read
+    for (int r = threadIdx.x; r < n16; r += blockDim.x) {
+      float mv = 0.f, rv = 0.f, dlv = 0.f;  // rows past L: zero operands, ds = 0
+      uint32_t rk = 0u;
+      if (r < n) {
+        const size_t row = (size_t)b * L + i0 + r;
+        mv = stats[row * (2 * H) + 2 * h];
+        rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
+        dlv = delta[row * H + h];
+        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, b, h, i0 + r);
+      }
+      m_s[r] = mv;
+      r_s[r] = rv;
+      dl_s[r] = dlv;
+      rk_s[r] = rk;
+    }
+    act3d_stage_bf16<DP>(q_b + (size_t)i0 * E, E, n, n16, d, q_s, SK, nullptr, 0);
+    act3d_stage_bf16<DP>(o_b + (size_t)i0 * E, E, n, n16, d, o_s, SK, nullptr, 0);
+    __syncthreads();
+    // the row-scaled operands of dk and dv, rounded as the TPU kernel rounds
+    // qf and dof, transposed
+    for (int i = threadIdx.x; i < n16 * DP; i += blockDim.x) {
+      const int j = i / DP;
+      const int c = i % DP;
+      qft_s[c * SR + j] = act3d_to_bf16(act3d_from_bf16(q_s[j * SK + c]) * r_s[j]);
+      oft_s[c * SR + j] =
+          act3d_to_bf16(act3d_from_bf16(o_s[j * SK + c]) * (r_s[j] * inv_keep));
+    }
+    __syncthreads();
+
+    if (warp_keys) {
+      // this row tile's dk and dv in fresh float32 accumulators, added to
+      // the running sums after the tile, as the float32 kernel does
+      float dkt[NO][4], dvt[NO][4];
+#pragma unroll
+      for (int on = 0; on < NO; ++on) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dkt[on][i] = 0.f;
+          dvt[on][i] = 0.f;
+        }
+      }
+      for (int rc = 0; rc < (n16 >> 4); ++rc) {
+        // s^T and dp^T for the warp's 16 keys and 16 rows, two n-tiles of
+        // 8 rows: element e of tile j is (key g + 8 (e >= 2), row
+        // 8 j + 2t + (e & 1))
+        float st[2][4], dpt[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = 0.f;
+            dpt[j][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          if (kk < ksu) {
+            uint32_t ka[4], va[4];
+            act3d_bf16_load_a(k_s, SK, warp * 16, kk * 16, g, t, ka);
+            act3d_bf16_load_a(v_s, SK, warp * 16, kk * 16, g, t, va);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              uint32_t bb[2];
+              act3d_bf16_load_b(q_s, SK, rc * 16 + j * 8, kk * 16, g, t, bb);
+              act3d_mma_bf16(st[j], ka, bb);
+              act3d_bf16_load_b(o_s, SK, rc * 16 + j * 8, kk * 16, g, t, bb);
+              act3d_mma_bf16(dpt[j], va, bb);
+            }
+          }
+        }
+        float exk[2][4], dsv[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jl = warp * 16 + g + (e >= 2 ? 8 : 0);
+            const int il = rc * 16 + j * 8 + 2 * t + (e & 1);
+            const float s = km_s[jl] ? kMaskedScore : st[j][e];
+            const float ex = (jl < nk && il < n) ? expf(s - m_s[il]) : 0.f;
+            float dp = dpt[j][e];
+            float kept = ex;
+            if (DROPOUT) {
+              const bool keep = act3d_dropout_keep(rk_s[il], k0 + jl, drop.threshold);
+              kept = keep ? ex : 0.f;
+              dp = keep ? dp * inv_keep : 0.f;
+            }
+            exk[j][e] = kept;
+            dsv[j][e] = ex * (dp - dl_s[il]);
+          }
+        }
+        uint32_t pa[4], da[4];
+        act3d_bf16_c_as_a(exk[0], exk[1], pa);  // rounded to bf16 here
+        act3d_bf16_c_as_a(dsv[0], dsv[1], da);
+#pragma unroll
+        for (int on = 0; on < NO; ++on) {
+          if (on < nou) {
+            uint32_t bb[2];
+            act3d_bf16_load_b(oft_s, SR, on * 8, rc * 16, g, t, bb);
+            act3d_mma_bf16(dvt[on], pa, bb);
+            act3d_bf16_load_b(qft_s, SR, on * 8, rc * 16, g, t, bb);
+            act3d_mma_bf16(dkt[on], da, bb);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jl = warp * 16 + g + (e >= 2 ? 8 : 0);
+            const int il = rc * 16 + j * 8 + 2 * t + (e & 1);
+            ds_s[il * SKB + jl] = act3d_to_bf16(dsv[j][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int on = 0; on < NO; ++on) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dka[on][i] += dkt[on][i];
+          dva[on][i] += dvt[on][i];
+        }
+      }
+    }
+    __syncthreads();
+
+    // dq of the row tile: tasks of (16 rows, 8 dims) over the block's keys
+    // (keys past nk carry ds = 0 and k = 0), scaled by r afterwards
+    const int tasks = (n16 >> 4) * nou;
+    for (int task = warp; task < tasks; task += kw) {
+      const int rg = task / nou;
+      const int on = task % nou;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kk = 0; kk < (nk16 >> 4); ++kk) {
+        uint32_t a[4], bb[2];
+        act3d_bf16_load_a(ds_s, SKB, rg * 16, kk * 16, g, t, a);
+        act3d_bf16_load_b(kt_s, SKB, on * 8, kk * 16, g, t, bb);
+        act3d_mma_bf16(acc, a, bb);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rg * 16 + g + 8 * r;
+        if (row >= n) continue;
+        const float rr = r_s[row];
+        const size_t off = ((size_t)b * L + i0 + row) * E + h * d;
+        const int c = on * 8 + 2 * t;
+        if (dq_slab) {
+          if (c < d) dq_slab[off + c] = acc[2 * r] * rr;
+          if (c + 1 < d) dq_slab[off + c + 1] = acc[2 * r + 1] * rr;
+        } else {
+          if (c < d) dq[off + c] = act3d_to_bf16(acc[2 * r] * rr);
+          if (c + 1 < d) dq[off + c + 1] = act3d_to_bf16(acc[2 * r + 1] * rr);
+        }
+      }
+    }
+  }
+
+  if (warp_keys) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int jl = warp * 16 + g + 8 * r;
+      if (jl >= nk) continue;
+      const size_t off = ((size_t)b * S + k0 + jl) * E + h * d;
+#pragma unroll
+      for (int on = 0; on < NO; ++on) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = on * 8 + 2 * t + u;
+          if (c >= d) continue;
+          if (dkv_parts) {
+            dk_slab[off + c] = dka[on][2 * r + u];
+            dv_slab[off + c] = dva[on][2 * r + u];
+          } else {
+            dk[off + c] = act3d_to_bf16(dka[on][2 * r + u]);
+            dv[off + c] = act3d_to_bf16(dva[on][2 * r + u]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int DP, bool DROPOUT>
+cudaError_t launch_bf16_dp(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                           const uint16_t* dout, const float* stats, const float* delta,
+                           const uint8_t* mask, uint16_t* dq, uint16_t* dk, uint16_t* dv,
+                           float* work, int B, int L, int S, int H, int d, int key_warps,
+                           int rows_per_split, int nsplit, Dropout drop,
+                           cudaStream_t stream) {
+  const int key_tiles = (S + 16 * key_warps - 1) / (16 * key_warps);
+  const int rt = row_tile(rows_per_split);
+  const size_t smem = smem_bytes_bf16(DP, key_warps, rt);
+  auto kernel = mha_bwd_bf16_kernel<DP, DROPOUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t ble = (size_t)B * L * H * d;
+  const size_t bse = (size_t)B * S * H * d;
+  float* dq_parts = key_tiles > 1 ? work : nullptr;
+  float* dkv_parts = nsplit > 1 ? work + (key_tiles > 1 ? key_tiles * ble : 0) : nullptr;
+  kernel<<<dim3(key_tiles * nsplit, H, B), 32 * key_warps, smem, stream>>>(
+      q, k, v, dout, stats, delta, mask, dq, dk, dv, dq_parts, dkv_parts, B, L, S, H, d,
+      key_tiles, nsplit, rows_per_split, rt, drop);
+  if (dq_parts) sum_slabs<uint16_t>(dq_parts, dq, nullptr, nullptr, ble, key_tiles, stream);
+  if (dkv_parts) {
+    sum_slabs<uint16_t>(dkv_parts, dk, dkv_parts + nsplit * bse, dv, bse, nsplit, stream);
+  }
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bf16(bool dropout, const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const uint16_t* dout, const float* stats,
+                        const float* delta, const uint8_t* mask, uint16_t* dq, uint16_t* dk,
+                        uint16_t* dv, float* work, int B, int L, int S, int H, int d,
+                        int key_warps, int rows_per_split, int nsplit, Dropout drop,
+                        cudaStream_t stream) {
+  if (dropout) {
+    return launch_bf16_dp<DP, true>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B,
+                                    L, S, H, d, key_warps, rows_per_split, nsplit, drop,
+                                    stream);
+  }
+  return launch_bf16_dp<DP, false>(q, k, v, dout, stats, delta, mask, dq, dk, dv, work, B,
+                                   L, S, H, d, key_warps, rows_per_split, nsplit, drop,
+                                   stream);
+}
+
+bool bad_args(int B, int L, int S, int H, int d, int key_warps, int rows_per_split,
+              int nsplit, const void* work) {
+  const bool warps_ok =
+      key_warps == 1 || key_warps == 2 || key_warps == 4 || key_warps == 8;
+  const int key_tiles = warps_ok ? (S + 16 * key_warps - 1) / (16 * key_warps) : 0;
+  return B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 || d > 64 ||
+         !warps_ok || rows_per_split < 1 || nsplit < 1 ||
+         (long long)(nsplit - 1) * rows_per_split >= L ||
+         (long long)nsplit * rows_per_split < L ||
+         ((key_tiles > 1 || nsplit > 1) && work == nullptr);
 }
 
 }  // namespace
@@ -422,17 +770,10 @@ extern "C" int act3d_fused_mha_bwd_f32(
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
     int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
     unsigned int threshold, float inv_keep, void* stream) {
-  const bool warps_ok =
-      key_warps == 1 || key_warps == 2 || key_warps == 4 || key_warps == 8;
-  if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
-      d > 64 || !warps_ok || rows_per_split < 1 || nsplit < 1 ||
-      (long long)(nsplit - 1) * rows_per_split >= L ||
-      (long long)nsplit * rows_per_split < L) {
+  if (bad_args(B, L, S, H, d, key_warps, rows_per_split, nsplit, work)) {
     return (int)cudaErrorInvalidValue;
   }
   const int dp = d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : 64;
-  const int key_tiles = (S + 16 * key_warps - 1) / (16 * key_warps);
-  if ((key_tiles > 1 || nsplit > 1) && work == nullptr) return (int)cudaErrorInvalidValue;
   if (smem_bytes(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
     return (int)cudaErrorInvalidConfiguration;
   }
@@ -467,6 +808,53 @@ extern "C" int act3d_fused_mha_bwd_f32(
     default:
       err = launch<64>(dr, qf, kf, vf, of, sf, lf, mf, dqf, dkf, dvf, wf, B, L, S, H, d,
                        key_warps, rows_per_split, nsplit, drop, st);
+  }
+  return (int)err;
+}
+
+// The bf16 entry: the float32 entry's interface with q, k, v, dout, dq,
+// dk and dv bf16 tensors (stats, delta and work float32, the same sizes).
+// d is padded to 16, 32 or 64.
+extern "C" int act3d_fused_mha_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* stats, const void* delta, const void* mask, void* dq,
+    void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
+    int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
+    unsigned int threshold, float inv_keep, void* stream) {
+  if (bad_args(B, L, S, H, d, key_warps, rows_per_split, nsplit, work)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int dp = d <= 16 ? 16 : d <= 32 ? 32 : 64;
+  if (smem_bytes_bf16(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const Dropout drop{seed, threshold, inv_keep};
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  const uint16_t* oh = static_cast<const uint16_t*>(dout);
+  const float* sf = static_cast<const float*>(stats);
+  const float* lf = static_cast<const float*>(delta);
+  const uint8_t* mf = static_cast<const uint8_t*>(mask);
+  uint16_t* dqh = static_cast<uint16_t*>(dq);
+  uint16_t* dkh = static_cast<uint16_t*>(dk);
+  uint16_t* dvh = static_cast<uint16_t*>(dv);
+  float* wf = static_cast<float*>(work);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool dr = dropout != 0;
+  cudaError_t err;
+  switch (dp) {
+    case 16:
+      err = launch_bf16<16>(dr, qh, kh, vh, oh, sf, lf, mf, dqh, dkh, dvh, wf, B, L, S, H,
+                            d, key_warps, rows_per_split, nsplit, drop, st);
+      break;
+    case 32:
+      err = launch_bf16<32>(dr, qh, kh, vh, oh, sf, lf, mf, dqh, dkh, dvh, wf, B, L, S, H,
+                            d, key_warps, rows_per_split, nsplit, drop, st);
+      break;
+    default:
+      err = launch_bf16<64>(dr, qh, kh, vh, oh, sf, lf, mf, dqh, dkh, dvh, wf, B, L, S, H,
+                            d, key_warps, rows_per_split, nsplit, drop, st);
   }
   return (int)err;
 }

@@ -58,12 +58,28 @@
 //     write nothing, keys past the chunk score -inf (weight 0).
 //   * exp is the accurate expf: the port holds the kernel to atol 2e-5
 //     against the plain version.
+//
+// The bf16 entry (act3d_fused_mha_fwd_bf16, --mixed_precision 1 training)
+// takes q, k, v and writes out in bf16; stats and the workspace stay
+// float32.  It computes what the TPU kernel computes on bf16 inputs: s =
+// q k^T with bf16 operands and float32 sums; the softmax in float32; the
+// unnormalised weights rounded to bf16 before p v (ex.astype(v.dtype));
+// p v summed in float32, scaled by 1 / ((1 - rate) l) and rounded to bf16.
+// The one difference is where it rounds: the TPU rounds exp(s - m) with
+// the row's final max, this kernel exp(s - m) with its running max, which
+// the online softmax then rescales in float32 (a relative change of one
+// bf16 rounding either way).  Products on mma.sync m16n8k16 bf16
+// (mma_bf16.cuh): 989 TFLOP/s dense, one product per product, no split;
+// d padded with zeros to DP = 16, 32 or 64.  Grid, plan, key tiles, split
+// and combine are the float32 kernel's; K is staged row-major and V
+// transposed, so every B operand is one 32-bit shared-memory word.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -324,10 +340,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int DP, bool STATS>
+template <int DP, bool STATS, typename OutT>
 __global__ void mha_fwd_combine_kernel(const float* __restrict__ part_acc,
                                        const float* __restrict__ part_ml,
-                                       float* __restrict__ out,
+                                       OutT* __restrict__ out,
                                        float* __restrict__ stats, int B, int L, int H,
                                        int d, int nsplit, float inv_keep) {
   const int E = H * d;
@@ -360,12 +376,12 @@ __global__ void mha_fwd_combine_kernel(const float* __restrict__ part_acc,
     }
     l = warp_sum(l);
     const float scale = inv_keep / l;
-    float* o = out + bl * E + h * d;
+    OutT* o = out + bl * E + h * d;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
       if (c < d) {
         const float x = warp_sum(acc[c]);
-        if ((c & 31) == lane) o[c] = x * scale;
+        if ((c & 31) == lane) act3d_store(o + c, x * scale);
       }
     }
     if (STATS && lane == 0) {
@@ -397,7 +413,7 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v,
   if (nsplit > 1) {
     const size_t items = (size_t)B * L * H;  // one warp each
     const int blocks = (int)((items + 7) / 8 < 8192 ? (items + 7) / 8 : 8192);
-    mha_fwd_combine_kernel<DP, STATS><<<blocks, 256, 0, stream>>>(
+    mha_fwd_combine_kernel<DP, STATS, float><<<blocks, 256, 0, stream>>>(
         part_acc, part_ml, out, stats, B, L, H, d, nsplit,
         DROPOUT ? drop.inv_keep : 1.f);
   }
@@ -421,6 +437,272 @@ cudaError_t launch(bool dropout, const float* q, const float* k, const float* v,
                                     chunk, nsplit, drop, stream);
 }
 
+// ---------------------------------------------------------------- bf16
+// The bf16 kernel: mha_fwd_kernel's grid, block and online softmax with
+// bf16 tensor-core products (see the header comment).  Shared memory: the
+// key tile's K [key][DP + 8] and V^T [dim][kKeyTile + 8] (bf16 bits), and
+// the mask bytes.
+template <int DP, bool DROPOUT, bool STATS>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+mha_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const uint8_t* __restrict__ mask,
+                    uint16_t* __restrict__ out, float* __restrict__ stats,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml, int B,
+                    int L, int S, int H, int d, int row_warps, int q_tiles, int chunk,
+                    Dropout drop) {
+  constexpr int SK = DP + 8;        // K tile row stride (bf16)
+  constexpr int SV = kKeyTile + 8;  // V^T tile row stride
+  constexpr int KS = DP / 16;       // k-steps of q k^T
+  constexpr int NO = DP / 8;        // n-tiles of p v
+  constexpr int NT = kKeyTile / 8;  // n-tiles of scores per key tile
+  static_assert(NT % 2 == 0, "p v takes the score tiles in pairs");
+  extern __shared__ __align__(16) uint16_t smem16[];
+  uint16_t* k_s = smem16;
+  uint16_t* vt_s = k_s + kKeyTile * SK;
+  uint8_t* m_s = reinterpret_cast<uint8_t*>(vt_s + DP * SV);
+
+  const int E = H * d;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tile = blockIdx.x % q_tiles;
+  const int split = blockIdx.x / q_tiles;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const bool has_rows = warp < row_warps;
+  const int row_a = (tile * row_warps + warp) * 16 + g;
+  const int row_b = row_a + 8;
+  const int ksu = (d + 15) >> 4;  // k-steps that hold real dims
+  const int nou = (d + 7) >> 3;   // output n-tiles that hold real dims
+
+  // q fragments (the A operand of q k^T), zeros past L and d
+  const uint16_t* q_b = q + (size_t)b * L * E + h * d;
+  auto qbits = [&](int row, int c) -> uint32_t {
+    return (row < L && c < d) ? (uint32_t)q_b[(size_t)row * E + c] : 0u;
+  };
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c0 = kk * 16 + 2 * t;
+    qa[kk][0] = qbits(row_a, c0) | (qbits(row_a, c0 + 1) << 16);
+    qa[kk][1] = qbits(row_b, c0) | (qbits(row_b, c0 + 1) << 16);
+    qa[kk][2] = qbits(row_a, c0 + 8) | (qbits(row_a, c0 + 9) << 16);
+    qa[kk][3] = qbits(row_b, c0 + 8) | (qbits(row_b, c0 + 9) << 16);
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int on = 0; on < NO; ++on) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[on][i] = 0.f;
+  }
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  uint32_t rk_a = 0u, rk_b = 0u;
+  if (DROPOUT) {
+    rk_a = act3d_dropout_row_key(drop.seed, b, h, row_a);
+    rk_b = act3d_dropout_row_key(drop.seed, b, h, row_b);
+  }
+
+  const uint16_t* k_b = k + (size_t)b * S * E + h * d;
+  const uint16_t* v_b = v + (size_t)b * S * E + h * d;
+  const uint8_t* mask_b = mask ? mask + (size_t)b * S : nullptr;
+  const int c_begin = split * chunk;
+  const int c_end = min(S, c_begin + chunk);
+
+  for (int s0 = c_begin; s0 < c_end; s0 += kKeyTile) {
+    const int n = min(kKeyTile, c_end - s0);
+    __syncthreads();  // the previous tile is no longer read
+    const int j_m = threadIdx.x;  // blockDim >= 128 >= kKeyTile
+    const uint8_t masked = (j_m < n && mask_b) ? mask_b[s0 + j_m] : 0;
+    // whole tiles, zeros past n: p v reads the keys in steps of 16
+    act3d_stage_bf16<DP>(k_b + (size_t)s0 * E, E, n, kKeyTile, d, k_s, SK, nullptr, 0);
+    act3d_stage_bf16<DP>(v_b + (size_t)s0 * E, E, n, kKeyTile, d, nullptr, 0, vt_s, SV);
+    if (j_m < kKeyTile) m_s[j_m] = masked;
+    __syncthreads();
+    if (!has_rows) continue;
+
+    const int ntn = (n + 7) >> 3;  // n-tiles of 8 keys that hold keys
+    float s[NT][4];
+    float t_a = -INFINITY, t_b = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      if (nt < ntn) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          if (kk < ksu) {
+            uint32_t bb[2];
+            act3d_bf16_load_b(k_s, SK, nt * 8, kk * 16, g, t, bb);
+            act3d_mma_bf16(s[nt], qa[kk], bb);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = nt * 8 + 2 * t + (i & 1);
+          float x = s[nt][i];
+          if (j >= n) x = -INFINITY;
+          else if (m_s[j]) x = kMaskedScore;
+          s[nt][i] = x;
+          if (i < 2) t_a = fmaxf(t_a, x);
+          else t_b = fmaxf(t_b, x);
+        }
+      }
+    }
+    const float n_a = fmaxf(m_a, quad_max(t_a));
+    const float n_b = fmaxf(m_b, quad_max(t_b));
+    const float sc_a = expf(m_a - n_a);  // 0 while m is still -inf
+    const float sc_b = expf(m_b - n_b);
+    m_a = n_a;
+    m_b = n_b;
+    l_a *= sc_a;
+    l_b *= sc_b;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = 0.f;  // n-tiles past the keys: weight 0 in p v
+        if (nt < ntn) {
+          p = expf(s[nt][i] - (i < 2 ? m_a : m_b));
+          if (i < 2) l_a += p;  // l is the sum before dropout and rounding
+          else l_b += p;
+          if (DROPOUT && !act3d_dropout_keep(i < 2 ? rk_a : rk_b,
+                                             s0 + nt * 8 + 2 * t + (i & 1),
+                                             drop.threshold)) {
+            p = 0.f;
+          }
+        }
+        s[nt][i] = p;
+      }
+    }
+    // the tile's p v into a fresh float32 accumulator, as the float32 kernel
+    float ot[NO][4];
+#pragma unroll
+    for (int on = 0; on < NO; ++on) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ot[on][i] = 0.f;
+    }
+#pragma unroll
+    for (int kt = 0; kt < NT / 2; ++kt) {
+      if (2 * kt < ntn) {
+        uint32_t pa[4];
+        act3d_bf16_c_as_a(s[2 * kt], s[2 * kt + 1], pa);  // p rounded to bf16
+#pragma unroll
+        for (int on = 0; on < NO; ++on) {
+          if (on < nou) {
+            uint32_t bb[2];
+            act3d_bf16_load_b(vt_s, SV, on * 8, kt * 16, g, t, bb);
+            act3d_mma_bf16(ot[on], pa, bb);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int on = 0; on < NO; ++on) {
+      o[on][0] = fmaf(o[on][0], sc_a, ot[on][0]);
+      o[on][1] = fmaf(o[on][1], sc_a, ot[on][1]);
+      o[on][2] = fmaf(o[on][2], sc_b, ot[on][2]);
+      o[on][3] = fmaf(o[on][3], sc_b, ot[on][3]);
+    }
+  }
+  if (!has_rows) return;
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+
+  const int rows[2] = {row_a, row_b};
+  const float ms[2] = {m_a, m_b};
+  const float ls[2] = {l_a, l_b};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    if (row >= L) continue;
+    const size_t bl = (size_t)b * L + row;
+    if (part_acc == nullptr) {
+      uint16_t* dst = out + bl * E + h * d;
+      const float scale = (DROPOUT ? drop.inv_keep : 1.f) / ls[r];
+      if (STATS && t == 0) {
+        stats[bl * (2 * H) + 2 * h] = ms[r];
+        stats[bl * (2 * H) + 2 * h + 1] = ls[r];
+      }
+#pragma unroll
+      for (int on = 0; on < NO; ++on) {
+        const int c = on * 8 + 2 * t;
+        if (c < d) dst[c] = act3d_to_bf16(o[on][2 * r] * scale);
+        if (c + 1 < d) dst[c + 1] = act3d_to_bf16(o[on][2 * r + 1] * scale);
+      }
+    } else {
+      const size_t sbl = (size_t)split * B * L + bl;
+      float* dst = part_acc + sbl * E + h * d;
+      if (t == 0) {
+        part_ml[(sbl * H + h) * 2] = ms[r];
+        part_ml[(sbl * H + h) * 2 + 1] = ls[r];
+      }
+#pragma unroll
+      for (int on = 0; on < NO; ++on) {
+        const int c = on * 8 + 2 * t;
+        if (c < d) dst[c] = o[on][2 * r];
+        if (c + 1 < d) dst[c + 1] = o[on][2 * r + 1];
+      }
+    }
+  }
+}
+
+template <int DP, bool DROPOUT, bool STATS>
+cudaError_t launch_bf16_dp(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                           const uint8_t* mask, uint16_t* out, float* stats, float* work,
+                           int B, int L, int S, int H, int d, int warps, int chunk,
+                           int nsplit, Dropout drop, cudaStream_t stream) {
+  const int q_tiles = (L + 16 * warps - 1) / (16 * warps);
+  const int threads = 32 * (warps > kMinWarps ? warps : kMinWarps);
+  const size_t smem =
+      (size_t)(kKeyTile * (DP + 8) + DP * (kKeyTile + 8)) * sizeof(uint16_t) + kKeyTile;
+  auto kernel = mha_fwd_bf16_kernel<DP, DROPOUT, STATS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  float* part_acc = nsplit > 1 ? work : nullptr;
+  float* part_ml = nsplit > 1 ? work + (size_t)nsplit * B * L * H * d : nullptr;
+  kernel<<<dim3(q_tiles * nsplit, H, B), threads, smem, stream>>>(
+      q, k, v, mask, out, stats, part_acc, part_ml, B, L, S, H, d, warps, q_tiles, chunk,
+      drop);
+  if (nsplit > 1) {
+    const size_t items = (size_t)B * L * H;  // one warp each
+    const int blocks = (int)((items + 7) / 8 < 8192 ? (items + 7) / 8 : 8192);
+    mha_fwd_combine_kernel<DP, STATS, uint16_t><<<blocks, 256, 0, stream>>>(
+        part_acc, part_ml, out, stats, B, L, H, d, nsplit,
+        DROPOUT ? drop.inv_keep : 1.f);
+  }
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bf16(bool dropout, const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const uint8_t* mask, uint16_t* out, float* stats,
+                        float* work, int B, int L, int S, int H, int d, int warps, int chunk,
+                        int nsplit, Dropout drop, cudaStream_t stream) {
+  if (stats == nullptr) {  // the single-head-layout core: no dropout, no stats
+    return launch_bf16_dp<DP, false, false>(q, k, v, mask, out, stats, work, B, L, S, H, d,
+                                            warps, chunk, nsplit, drop, stream);
+  }
+  if (dropout) {
+    return launch_bf16_dp<DP, true, true>(q, k, v, mask, out, stats, work, B, L, S, H, d,
+                                          warps, chunk, nsplit, drop, stream);
+  }
+  return launch_bf16_dp<DP, false, true>(q, k, v, mask, out, stats, work, B, L, S, H, d,
+                                         warps, chunk, nsplit, drop, stream);
+}
+
+bool bad_args(int B, int L, int S, int H, int d, int warps, int chunk, int nsplit,
+              const void* stats, const void* work, int dropout) {
+  const bool warps_ok = warps == 1 || warps == 2 || warps == 4 || warps == 8;
+  return B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 || d > 64 ||
+         !warps_ok || chunk < 1 || nsplit < 1 || (long long)(nsplit - 1) * chunk >= S ||
+         (long long)nsplit * chunk < S || (nsplit > 1 && work == nullptr) ||
+         (stats == nullptr && dropout != 0);
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers of
@@ -440,11 +722,7 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        int chunk, int nsplit, int dropout,
                                        unsigned int seed, unsigned int threshold,
                                        float inv_keep, void* stream) {
-  const bool warps_ok = warps == 1 || warps == 2 || warps == 4 || warps == 8;
-  if (B < 1 || L < 1 || S < 1 || H < 1 || H > 65535 || B > 65535 || d < 1 ||
-      d > 64 || !warps_ok || chunk < 1 || nsplit < 1 ||
-      (long long)(nsplit - 1) * chunk >= S || (long long)nsplit * chunk < S ||
-      (nsplit > 1 && work == nullptr) || (stats == nullptr && dropout != 0)) {
+  if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
     return (int)cudaErrorInvalidValue;
   }
   const Dropout drop{seed, threshold, inv_keep};
@@ -470,6 +748,43 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
   } else {
     err = launch<64>(dr, qf, kf, vf, mf, of, sf, wf, B, L, S, H, d, warps, chunk, nsplit,
                      drop, st);
+  }
+  return (int)err;
+}
+
+// The bf16 entry: the float32 entry's interface with q, k, v and out bf16
+// tensors (stats and work float32, the same sizes).  d is padded to 16, 32
+// or 64.
+extern "C" int act3d_fused_mha_fwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* mask,
+                                        void* out, void* stats, void* work, int B,
+                                        int L, int S, int H, int d, int warps,
+                                        int chunk, int nsplit, int dropout,
+                                        unsigned int seed, unsigned int threshold,
+                                        float inv_keep, void* stream) {
+  if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Dropout drop{seed, threshold, inv_keep};
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  const uint8_t* mf = static_cast<const uint8_t*>(mask);
+  uint16_t* oh = static_cast<uint16_t*>(out);
+  float* sf = static_cast<float*>(stats);
+  float* wf = static_cast<float*>(work);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool dr = dropout != 0;
+  cudaError_t err;
+  if (d <= 16) {
+    err = launch_bf16<16>(dr, qh, kh, vh, mf, oh, sf, wf, B, L, S, H, d, warps, chunk,
+                          nsplit, drop, st);
+  } else if (d <= 32) {
+    err = launch_bf16<32>(dr, qh, kh, vh, mf, oh, sf, wf, B, L, S, H, d, warps, chunk,
+                          nsplit, drop, st);
+  } else {
+    err = launch_bf16<64>(dr, qh, kh, vh, mf, oh, sf, wf, B, L, S, H, d, warps, chunk,
+                          nsplit, drop, st);
   }
   return (int)err;
 }

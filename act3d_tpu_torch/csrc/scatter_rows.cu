@@ -1,4 +1,4 @@
-// Row-gather adjoint for unique indices, float32, for Hopper (sm_90a).
+// Row-gather adjoint for unique indices, float32 and bf16, for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of act3d_tpu/kernels/gather.py:
 //   * onehot_scatter_rows_sorted (unique, ascending indices: the VJP of
@@ -48,11 +48,17 @@
 //     a first kernel writes inv[b, idx[b, j]] = j + 1 into an int32 (B, P)
 //     map zeroed by cudaMemsetAsync; one block per tile of kTile rows reads
 //     its slots from inv.
-//   * stores: a tile is one contiguous span of rows * C floats of out;
-//     consecutive threads write consecutive 16-byte float4s (C % 4 == 0 and
-//     16-byte aligned rows, e.g. C = 60 is 15 float4s), else floats.  One
-//     writer serves every entry: each thread loads kUnroll g-row elements
-//     before it stores any, so it keeps kUnroll loads and stores in flight.
+//   * stores: a tile is one contiguous span of rows * C elements of out;
+//     consecutive threads write consecutive words of 16 bytes where the
+//     rows allow (C % 4 == 0 and 16-byte aligned float32 rows, e.g. C = 60
+//     is 15 float4s), else of 8, 4 or 2 bytes.  One writer serves every
+//     entry: each thread loads kUnroll g-row words before it stores any,
+//     so it keeps kUnroll loads and stores in flight.
+//   * bf16 (the *_bf16 entries, --mixed_precision 1): the same copies of
+//     2-byte elements, bit-exact as at float32 (JAX's one-hot product
+//     computes one copy per row too).  A C = 60 row is 120 bytes, no
+//     multiple of 16, so the Act3D rows go in 8-byte words (4 bf16); the
+//     bytes bound halves.
 //   * an index outside a tile's range never lands in it, so indices that
 //     break the precondition give a wrong result but no stray write.
 
@@ -83,58 +89,32 @@ __device__ __forceinline__ int warp_lower_bound(const int64_t* a, int n, int64_t
   return lo;
 }
 
-// Writes `rows` rows of C floats at out_t, one contiguous span: row r is g
-// row slot[r] - 1 (g_b's rows g_sj floats apart), or zeros where slot[r] is
-// 0.  Consecutive threads take consecutive elements (VEC false: floats;
-// true: float4s), and each thread loads kUnroll of them before it stores
-// any.
-template <bool VEC>
-__device__ __forceinline__ void write_rows(const int* slot, const float* __restrict__ g_b,
-                                           int64_t g_sj, float* __restrict__ out_t, int rows,
-                                           int C) {
-  if (!VEC) {
-    const int n = rows * C;
-    for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * kThreads) {
-      float val[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kThreads;
-        val[u] = 0.f;
-        if (i < n) {
-          const int r = i / C;
-          const int s = slot[r];
-          if (s) val[u] = __ldg(g_b + (size_t)(s - 1) * g_sj + (i - r * C));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < n) out_t[i] = val[u];
-      }
-    }
-    return;
-  }
-  const int c4 = C >> 2;
-  const int n = rows * c4;
-  const float4* g4 = reinterpret_cast<const float4*>(g_b);
-  const int64_t g_sj4 = g_sj >> 2;
-  float4* out4 = reinterpret_cast<float4*>(out_t);
+// Writes `rows` rows of cw words W at out_t, one contiguous span: row r is
+// g row slot[r] - 1 (g_b's rows g_sj words apart), or zeros where slot[r]
+// is 0.  A word is 2, 4, 8 or 16 bytes of a row copied as they are (a
+// float4, 8 bf16, ...).  Consecutive threads take consecutive words, and
+// each thread loads kUnroll of them before it stores any.
+template <typename W>
+__device__ __forceinline__ void write_rows(const int* slot, const W* __restrict__ g_b,
+                                           int64_t g_sj, W* __restrict__ out_t, int rows,
+                                           int cw) {
+  const int n = rows * cw;
   for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * kThreads) {
-    float4 val[kUnroll];
+    W val[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u * kThreads;
-      val[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      val[u] = W{};
       if (i < n) {
-        const int r = i / c4;
+        const int r = i / cw;
         const int s = slot[r];
-        if (s) val[u] = __ldg(g4 + (size_t)(s - 1) * g_sj4 + (i - r * c4));
+        if (s) val[u] = __ldg(g_b + (size_t)(s - 1) * g_sj + (i - r * cw));
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u * kThreads;
-      if (i < n) out4[i] = val[u];
+      if (i < n) out_t[i] = val[u];
     }
   }
 }
@@ -149,11 +129,11 @@ slot_map_kernel(const int64_t* __restrict__ idx, int* __restrict__ inv, int K, i
 }
 
 // The unsorted body: block (x, b) writes rows [x * kTile, x * kTile + rows)
-// of out[b] from the slot map inv.
-template <bool VEC>
+// of out[b] from the slot map inv.  Rows are cw words; strides in words.
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ inv,
-                    float* __restrict__ out, int64_t P, int C, int64_t g_sb, int64_t g_sj) {
+scatter_rows_kernel(const W* __restrict__ g, const int* __restrict__ inv,
+                    W* __restrict__ out, int64_t P, int cw, int64_t g_sb, int64_t g_sj) {
   __shared__ int slot_s[kTile];  // j + 1 of the g row that lands on tile row r; 0 = none
   const int b = blockIdx.y;
   const int64_t p0 = (int64_t)blockIdx.x * kTile;
@@ -161,15 +141,16 @@ scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ inv,
   const int* inv_t = inv + (size_t)b * P + p0;
   for (int r = threadIdx.x; r < kTile; r += kThreads) slot_s[r] = r < rows ? inv_t[r] : 0;
   __syncthreads();
-  write_rows<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
+  write_rows<W>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * cw, rows,
+                cw);
 }
 
 // The sorted body: block (x, b) writes the same rows, its slots found from
 // the ascending idx[b].
-template <bool VEC>
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
-scatter_sorted_kernel(const float* __restrict__ g, const int64_t* __restrict__ idx,
-                      float* __restrict__ out, int K, int64_t P, int C, int64_t g_sb,
+scatter_sorted_kernel(const W* __restrict__ g, const int64_t* __restrict__ idx,
+                      W* __restrict__ out, int K, int64_t P, int cw, int64_t g_sb,
                       int64_t g_sj) {
   __shared__ int slot_s[kTile];  // j + 1 of the g row that lands on tile row r; 0 = none
   __shared__ int window[2];
@@ -191,7 +172,8 @@ scatter_sorted_kernel(const float* __restrict__ g, const int64_t* __restrict__ i
     if (r >= 0 && r < rows) slot_s[r] = j + 1;
   }
   __syncthreads();
-  write_rows<VEC>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * C, rows, C);
+  write_rows<W>(slot_s, g + (size_t)b * g_sb, g_sj, out + ((size_t)b * P + p0) * cw, rows,
+                cw);
 }
 
 dim3 tile_grid(int B, int64_t P) { return dim3((unsigned)((P + kTile - 1) / kTile), B); }
@@ -199,6 +181,74 @@ dim3 tile_grid(int B, int64_t P) { return dim3((unsigned)((P + kTile - 1) / kTil
 bool bad_shape(int B, int K, int64_t P, int C) {
   return B < 1 || B > 65535 || K < 1 || P < 1 || C < 1 ||
          (P + kTile - 1) / kTile > 0x7fffffff || P * (int64_t)C > ((int64_t)1 << 40);
+}
+
+// Rows of `width`-byte words: the row (c_bytes) and the strides (bytes)
+// in words.  The callers check that width divides each.
+template <typename W>
+cudaError_t launch_sorted(const void* g, const void* idx, void* out, int B, int K, int64_t P,
+                          int64_t c_bytes, int64_t sb_bytes, int64_t sj_bytes,
+                          cudaStream_t st) {
+  constexpr int w = sizeof(W);
+  scatter_sorted_kernel<W><<<tile_grid(B, P), kThreads, 0, st>>>(
+      static_cast<const W*>(g), static_cast<const int64_t*>(idx), static_cast<W*>(out), K, P,
+      (int)(c_bytes / w), sb_bytes / w, sj_bytes / w);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t launch_unsorted(const void* g, const void* idx, int* inv, void* out, int B, int K,
+                            int64_t P, int64_t c_bytes, int64_t sb_bytes, int64_t sj_bytes,
+                            cudaStream_t st) {
+  constexpr int w = sizeof(W);
+  cudaError_t err = cudaMemsetAsync(inv, 0, (size_t)B * P * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  const dim3 slot_grid((K + kThreads - 1) / kThreads, B);
+  slot_map_kernel<<<slot_grid, kThreads, 0, st>>>(static_cast<const int64_t*>(idx), inv, K, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scatter_rows_kernel<W><<<tile_grid(B, P), kThreads, 0, st>>>(
+      static_cast<const W*>(g), inv, static_cast<W*>(out), P, (int)(c_bytes / w),
+      sb_bytes / w, sj_bytes / w);
+  return cudaGetLastError();
+}
+
+// One entry of either kind, its rows in `width`-byte words (2, 4, 8 or 16)
+// of elements of `esize` bytes; g_sb / g_sj in elements.  Invalid when the
+// width does not divide the row and both strides.
+int scatter(bool sorted, const void* g, const void* idx, void* inv, void* out, int B, int K,
+            int64_t P, int C, int esize, int64_t g_sb, int64_t g_sj, int width,
+            void* stream) {
+  const int64_t c_bytes = (int64_t)C * esize;
+  const int64_t sb = g_sb * esize;
+  const int64_t sj = g_sj * esize;
+  if (bad_shape(B, K, P, C) || (width != 2 && width != 4 && width != 8 && width != 16) ||
+      width < esize || c_bytes % width || sb % width || sj % width) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* inv_i = static_cast<int*>(inv);
+  cudaError_t err;
+  switch (width) {
+    case 2:
+      err = sorted ? launch_sorted<uint16_t>(g, idx, out, B, K, P, c_bytes, sb, sj, st)
+                   : launch_unsorted<uint16_t>(g, idx, inv_i, out, B, K, P, c_bytes, sb, sj,
+                                               st);
+      break;
+    case 4:
+      err = sorted ? launch_sorted<uint32_t>(g, idx, out, B, K, P, c_bytes, sb, sj, st)
+                   : launch_unsorted<uint32_t>(g, idx, inv_i, out, B, K, P, c_bytes, sb, sj,
+                                               st);
+      break;
+    case 8:
+      err = sorted ? launch_sorted<uint2>(g, idx, out, B, K, P, c_bytes, sb, sj, st)
+                   : launch_unsorted<uint2>(g, idx, inv_i, out, B, K, P, c_bytes, sb, sj, st);
+      break;
+    default:
+      err = sorted ? launch_sorted<uint4>(g, idx, out, B, K, P, c_bytes, sb, sj, st)
+                   : launch_unsorted<uint4>(g, idx, inv_i, out, B, K, P, c_bytes, sb, sj, st);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -213,12 +263,8 @@ extern "C" int act3d_scatter_rows_sorted_f32(const void* g, const void* idx, voi
                                              int B, int K, int64_t P, int C,
                                              int64_t g_sb, int64_t g_sj, int vec,
                                              void* stream) {
-  if (bad_shape(B, K, P, C)) return (int)cudaErrorInvalidValue;
-  auto kernel = vec ? scatter_sorted_kernel<true> : scatter_sorted_kernel<false>;
-  kernel<<<tile_grid(B, P), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int64_t*>(idx), static_cast<float*>(out),
-      K, P, C, g_sb, g_sj);
-  return (int)cudaGetLastError();
+  return scatter(true, g, idx, nullptr, out, B, K, P, C, 4, g_sb, g_sj, vec ? 16 : 4,
+                 stream);
 }
 
 // The unsorted entry also takes inv, an int32 (B, P) scratch buffer that it
@@ -226,20 +272,24 @@ extern "C" int act3d_scatter_rows_sorted_f32(const void* g, const void* idx, voi
 extern "C" int act3d_scatter_rows_f32(const void* g, const void* idx, void* inv, void* out,
                                       int B, int K, int64_t P, int C, int64_t g_sb,
                                       int64_t g_sj, int vec, void* stream) {
-  if (bad_shape(B, K, P, C)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* inv_i = static_cast<int*>(inv);
-  cudaError_t err = cudaMemsetAsync(inv_i, 0, (size_t)B * P * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 slot_grid((K + kThreads - 1) / kThreads, B);
-  slot_map_kernel<<<slot_grid, kThreads, 0, st>>>(static_cast<const int64_t*>(idx), inv_i,
-                                                   K, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  auto kernel = vec ? scatter_rows_kernel<true> : scatter_rows_kernel<false>;
-  kernel<<<tile_grid(B, P), kThreads, 0, st>>>(static_cast<const float*>(g), inv_i,
-                                              static_cast<float*>(out), P, C, g_sb, g_sj);
-  return (int)cudaGetLastError();
+  return scatter(false, g, idx, inv, out, B, K, P, C, 4, g_sb, g_sj, vec ? 16 : 4, stream);
+}
+
+// The bf16 entries: the same with g and out bf16 tensors, strides in bf16
+// elements, and `width` the bytes of each access (2, 4, 8 or 16; the
+// wrapper picks the widest that the rows and g's alignment allow: 8 at
+// C = 60, whose 120-byte rows are no multiple of 16).
+extern "C" int act3d_scatter_rows_sorted_bf16(const void* g, const void* idx, void* out,
+                                              int B, int K, int64_t P, int C,
+                                              int64_t g_sb, int64_t g_sj, int width,
+                                              void* stream) {
+  return scatter(true, g, idx, nullptr, out, B, K, P, C, 2, g_sb, g_sj, width, stream);
+}
+
+extern "C" int act3d_scatter_rows_bf16(const void* g, const void* idx, void* inv, void* out,
+                                       int B, int K, int64_t P, int C, int64_t g_sb,
+                                       int64_t g_sj, int width, void* stream) {
+  return scatter(false, g, idx, inv, out, B, K, P, C, 2, g_sb, g_sj, width, stream);
 }
 
 // The grid and block of the row-writing kernel of every entry for (B, P):

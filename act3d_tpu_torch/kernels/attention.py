@@ -28,6 +28,16 @@ mask, no stats) with the forward kernel at B = B·H, H = 1, its stats
 skipped, launched with the fused sites' plan (:func:`fwd_plan` at one
 head, the same blocks as a (B, L, H·D) call); its backward is the TPU kernel's jnp VJP in
 torch ops.  As in JAX, no model path calls it.
+
+bf16: every wrapper also takes bfloat16 q, k, v (and dO), the dtype of
+``--mixed_precision 1`` training, and launches the bf16 entries of the
+same sources.  Products take bf16 operands with float32 sums, the softmax
+and the stats stay float32, and values are rounded to bf16 where the TPU
+kernels round them (``ex.astype(v.dtype)`` before p v, dO scaled by r
+/ (1 - rate), ds and q scaled by r before their products); the outputs are
+bf16.  The plain versions round at the same points, so that both compute
+JAX's function.  Each wrapper counts float32 launches in ``launches`` and
+bf16 launches in ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+
+from . import count_launch
 
 __all__ = [
     "AttentionCore",
@@ -106,9 +118,18 @@ def dropout_keep(seed: int, b: int, h: int, l: int, s: int, rate: float,
 
 
 # ----------------------------------------------------------- plain versions
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _split(x, num_heads):
     b, n, e = x.shape
     return x.reshape(b, n, num_heads, e // num_heads).transpose(1, 2).float()
+
+
+def _round(x, dtype):
+    """float32 x rounded to ``dtype`` where the TPU kernel casts it to the
+    input dtype (a no-op at float32), back in float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _merge(x, dtype):
@@ -137,7 +158,8 @@ def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None,
     """Plain PyTorch version of the forward kernel: returns (out, stats).
 
     ``keep`` (B, H, L, S) bool replaces the hash mask (tests feed another
-    implementation's mask through it)."""
+    implementation's mask through it).  At bf16 the unnormalised weights
+    are rounded to bf16 before p v, as ``_mha_fwd_body`` does."""
     b, l, _ = q.shape
     s = k.shape[1]
     qh, kh, vh = (_split(x, num_heads) for x in (q, k, v))
@@ -150,7 +172,7 @@ def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None,
     if keep is not None:
         ex = ex * keep
         scale = scale * (1.0 / (1.0 - dropout_rate))
-    out = _merge((ex @ vh) * scale, q.dtype)
+    out = _merge((_round(ex, v.dtype) @ vh) * scale, q.dtype)
     stats = torch.stack([m[..., 0], lsum[..., 0]], dim=-1)  # (B, H, L, 2)
     stats = stats.permute(0, 2, 1, 3).reshape(b, l, 2 * num_heads)
     return out, stats
@@ -167,7 +189,11 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
                                  key_padding_mask=None, dropout_rate: float = 0.0,
                                  dropout_seed=None, keep=None):
     """Plain PyTorch version of the backward kernel (the formula of the TPU
-    kernel's ``_mha_bwd_body``): returns (dq, dk, dv)."""
+    kernel's ``_mha_bwd_body``): returns (dq, dk, dv).  bf16 inputs take
+    :func:`_backward_reference_low`, which rounds where that body does."""
+    if q.dtype != torch.float32:
+        return _backward_reference_low(q, k, v, out, stats, grad_out, num_heads,
+                                       key_padding_mask, dropout_rate, dropout_seed, keep)
     b, l, _ = q.shape
     s = k.shape[1]
     qh, kh, vh, gh = (_split(x, num_heads) for x in (q, k, v, grad_out))
@@ -187,6 +213,36 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
     dq = ds @ kh
     dk = ds.transpose(-1, -2) @ qh
     return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
+
+
+def _backward_reference_low(q, k, v, out, stats, grad_out, num_heads, key_padding_mask,
+                            dropout_rate, dropout_seed, keep):
+    """The backward at a low-precision input dtype, in ``_mha_bwd_body``'s
+    order: unnormalised ex = exp(s - m); dv = round(ex_kept)^T dof with
+    dof = round(dO r / (1 - rate)); ds = round(ex (dp_kept - delta));
+    dq = (ds k) r; dk = ds^T round(q r).  Products in float32 of the
+    rounded operands, outputs in the input dtype."""
+    b, l, _ = q.shape
+    s = k.shape[1]
+    dt = q.dtype
+    qh, kh, vh, gh = (_split(x, num_heads) for x in (q, k, v, grad_out))
+    st = stats.reshape(b, l, num_heads, 2).permute(0, 2, 1, 3)  # (B, H, L, 2)
+    m, r = st[..., :1], 1.0 / st[..., 1:]
+    delta = _delta(out, grad_out, num_heads).transpose(1, 2)[..., None]  # (B, H, L, 1)
+    ex = torch.exp(_scores(qh, kh, key_padding_mask) - m)
+    dp = gh @ vh.transpose(-1, -2)
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
+    ex_kept = ex
+    if keep is not None:
+        ex_kept = ex * keep
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+    dof = _round(gh * (r * inv_keep), dt)
+    dv = _round(ex_kept, dt).transpose(-1, -2) @ dof
+    ds = _round(ex * (dp - delta), dt)
+    dq = (ds @ kh) * r
+    dk = ds.transpose(-1, -2) @ _round(qh * r, dt)
+    return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -286,26 +342,33 @@ def bwd_plan(b: int, l: int, s: int, h: int, d: int,
                    1 + (key_tiles > 1) + (nsplit > 1))
 
 
-def _fwd_fn():
+def _entry(source: str, name: str, n_pointers: int):
+    """The C entry ``name`` of ``source``: pointers, nine ints, the dropout
+    seed, threshold and 1/(1-rate), then the stream."""
     from . import _build
 
-    fn = _build.load(_FWD_SOURCE).act3d_fused_mha_fwd_f32
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
                        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fwd_fn():
+    return _entry(_FWD_SOURCE, "act3d_fused_mha_fwd_f32", 7)
+
+
+def _fwd_bf16_fn():
+    return _entry(_FWD_SOURCE, "act3d_fused_mha_fwd_bf16", 7)
 
 
 def _bwd_fn():
-    from . import _build
+    return _entry(_BWD_SOURCE, "act3d_fused_mha_bwd_f32", 11)
 
-    fn = _build.load(_BWD_SOURCE).act3d_fused_mha_bwd_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+
+def _bwd_bf16_fn():
+    return _entry(_BWD_SOURCE, "act3d_fused_mha_bwd_bf16", 11)
 
 
 def _check(q, k, v, num_heads, mask, rate, seed):
@@ -317,6 +380,8 @@ def _check(q, k, v, num_heads, mask, rate, seed):
                          f"v {tuple(v.shape)}")
     if e % num_heads != 0:
         raise ValueError(f"E={e} does not divide into {num_heads} heads")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v of several dtypes: {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape[1] < 1:
         raise ValueError("attention over an empty context")
     if not 0.0 <= rate < 1.0:
@@ -334,10 +399,18 @@ def _check(q, k, v, num_heads, mask, rate, seed):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_cuda(mask, d, **tensors):
+def _check_cuda(mask, d, dtype, stats=None, **tensors):
+    """Every tensor in ``tensors`` must be of ``dtype``, float32 or
+    bfloat16 (one kernel entry each); ``stats`` is float32 whatever it is."""
+    if dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"q is {dtype}: the kernels take float32 or bfloat16")
+    if stats is not None:
+        if stats.dtype != torch.float32:
+            raise ValueError(f"stats is {stats.dtype}: float32 expected")
+        tensors = dict(tensors, stats=stats)
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"{name} is {t.dtype}: the kernel takes float32")
+        if name != "stats" and t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype} beside q of {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if mask is not None and not mask.is_contiguous():
@@ -379,7 +452,9 @@ def fused_mha_forward(
     return (out, stats) if return_stats else out
 
 
-fused_mha_forward.launches = 0  # kernel launches since the last reset
+fused_mha_forward.launches = 0  # float32 kernel launches since the last reset
+fused_mha_forward.launches_bf16 = 0  # bf16 kernel launches since the last reset
+
 
 
 def _workspace(floats, device):
@@ -393,9 +468,9 @@ def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = Non
     b, l, e = q.shape
     s = k.shape[1]
     d = e // num_heads
-    _check_cuda(mask, d, q=q, k=k, v=v)
+    _check_cuda(mask, d, q.dtype, q=q, k=k, v=v)
     plan = plan or fwd_plan(b, l, s, num_heads, d)
-    fn = _fwd_fn()
+    fn = (_fwd_fn if q.dtype == torch.float32 else _fwd_bf16_fn)()
     out = torch.empty_like(q)
     stats = (torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
              if with_stats else None)
@@ -419,7 +494,7 @@ def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = 
     """One forward kernel call; ``plan`` overrides :func:`fwd_plan` (the
     plan A/B script uses it)."""
     out, stats = _run_fwd(q, k, v, num_heads, mask, rate, seed, plan)
-    fused_mha_forward.launches += 1
+    count_launch(fused_mha_forward, q.dtype)
     return out, stats
 
 
@@ -437,7 +512,8 @@ def fused_mha_backward(q, k, v, out, stats, grad_out, num_heads,
                        dropout_rate, dropout_seed)
 
 
-fused_mha_backward.launches = 0  # kernel launches since the last reset
+fused_mha_backward.launches = 0  # float32 kernel launches since the last reset
+fused_mha_backward.launches_bf16 = 0  # bf16 kernel launches since the last reset
 
 
 def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
@@ -447,9 +523,9 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
     s = k.shape[1]
     d = e // num_heads
     delta = _delta(out, grad_out, num_heads).contiguous()
-    _check_cuda(mask, d, q=q, k=k, v=v, grad_out=grad_out, stats=stats)
+    _check_cuda(mask, d, q.dtype, stats, q=q, k=k, v=v, grad_out=grad_out)
     plan = plan or bwd_plan(b, l, s, num_heads, d)
-    fn = _bwd_fn()
+    fn = (_bwd_fn if q.dtype == torch.float32 else _bwd_bf16_fn)()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -467,7 +543,7 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_bwd launch failed: CUDA error {rc}")
-    fused_mha_backward.launches += 1
+    count_launch(fused_mha_backward, q.dtype)
     return dq, dk, dv
 
 
@@ -475,23 +551,25 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
 def attention_core_reference(q, k, v, mask=None):
     """Plain PyTorch version of :func:`attention_core_forward`'s kernel:
     softmax(q kᵀ) v per leading index of (BH, L, D) tensors, masked keys at
-    -1e30."""
+    -1e30; at bf16 the weights are rounded to bf16 before the product, as
+    the TPU kernel's ``_attn_kernel`` does."""
     scores = q.float() @ k.float().transpose(-1, -2)
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], MASKED_SCORE)
-    return (torch.softmax(scores, dim=-1) @ v.float()).to(q.dtype)
+    return (_round(torch.softmax(scores, dim=-1), v.dtype) @ v.float()).to(q.dtype)
 
 
 def _attention_core_backward(q, k, v, mask, grad_out):
     """JAX's ``_attention_core_bwd`` (the standard softmax-attention VJP
-    with the scores recomputed) in torch ops: returns (dq, dk, dv)."""
-    scores = q @ k.transpose(-1, -2)
+    with the scores recomputed) in torch ops, with its casts (no-ops at
+    float32): returns (dq, dk, dv)."""
+    scores = q.float() @ k.float().transpose(-1, -2)
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], MASKED_SCORE)
-    w = torch.softmax(scores, dim=-1)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
     dv = w.transpose(-1, -2) @ grad_out
-    dw = (grad_out @ v.transpose(-1, -2)) * w
-    ds = dw - dw.sum(dim=-1, keepdim=True) * w
+    dw = (grad_out @ v.transpose(-1, -2)).float() * w.float()
+    ds = (dw - dw.sum(dim=-1, keepdim=True) * w.float()).to(q.dtype)
     return ds @ k, ds.transpose(-1, -2) @ q, dv
 
 
@@ -501,6 +579,8 @@ def _check_core(q, k, v, mask):
                          f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] or k.shape[1] < 1:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v of several dtypes: {q.dtype}, {k.dtype}, {v.dtype}")
     devices = {q.device, k.device, v.device}
     if mask is not None:
         if mask.dtype != torch.bool or tuple(mask.shape) != tuple(k.shape[:2]):
@@ -528,7 +608,7 @@ def _launch_core(q, k, v, mask):
     bh, l, d = q.shape
     out, _ = _run_fwd(q, k, v, 1, mask, 0.0, None, fwd_plan(bh, l, k.shape[1], 1, d),
                       with_stats=False)
-    attention_core.launches += 1
+    count_launch(attention_core, q.dtype)
     return out
 
 
@@ -557,7 +637,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return AttentionCore.apply(q, k, v, mask)
 
 
-attention_core.launches = 0  # kernel launches since the last reset
+attention_core.launches = 0  # float32 kernel launches since the last reset
+attention_core.launches_bf16 = 0  # bf16 kernel launches since the last reset
 
 
 class FusedMHA(torch.autograd.Function):

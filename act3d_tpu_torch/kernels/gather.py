@@ -20,7 +20,10 @@ launches the sorted entry (:func:`launch_shape` gives the grid).
 Every wrapper sends a CPU tensor to :func:`scatter_rows_reference` (the
 slot map of ``act3d_tpu/ops/geometry.py::_slot_map_bwd`` in torch ops) and
 a CUDA tensor to its kernel: on a CUDA tensor it launches the kernel or
-raises.
+raises.  g may be float32 or bfloat16 (``--mixed_precision 1``), each with
+its own kernel entry; a copy needs no arithmetic, so both are exact.  Each
+wrapper counts float32 launches in ``launches`` and bf16 launches in
+``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import count_launch
 
 __all__ = ["scatter_rows", "scatter_rows_chunked", "scatter_rows_reference",
            "scatter_rows_sorted"]
@@ -63,9 +68,12 @@ def _check(g, idx, out_rows):
         raise ValueError(f"unsupported device {g.device}")
 
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _fn(name: str, n_pointers: int):
     """The C entry ``name``: pointers, then (B, K, P, C, g's two strides,
-    vec), then the stream."""
+    vec or the access width), then the stream."""
     from . import _build
 
     fn = getattr(_build.load(_SOURCE), name)
@@ -90,32 +98,50 @@ def launch_shape(b: int, out_rows: int) -> dict:
     return dict(x=shape[0], y=shape[1], threads=shape[2], rows_per_block=shape[3])
 
 
+def access_bytes(g: torch.Tensor) -> int:
+    """The widest access (16, 8 or 4 bytes, else one element) that every g
+    row and every output row start on and that divides a row: the float32
+    entries take 16 (float4) or 4, the bf16 entries any of 16, 8, 4, 2 (a
+    C = 60 bf16 row is 120 bytes: 8-byte accesses)."""
+    size = g.element_size()
+    row = g.shape[2] * size
+    for width in (16, 8, 4):
+        if width == 8 and g.dtype == torch.float32:
+            continue
+        if (row % width == 0 and g.data_ptr() % width == 0
+                and (g.stride(0) * size) % width == 0 and (g.stride(1) * size) % width == 0):
+            return width
+    return size
+
+
 def _launch(g, idx, out_rows, entry):
     """Launch the "sorted" or the "unsorted" entry on CUDA tensors."""
-    if g.dtype != torch.float32:
-        raise NotImplementedError(f"g is {g.dtype}: the kernel takes float32")
+    if g.dtype not in _SUFFIX:
+        raise NotImplementedError(f"g is {g.dtype}: the kernels take float32 or bfloat16")
     if g.stride(2) != 1:
         raise ValueError("g must have unit stride along C")
     if idx.dtype != torch.int64 or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous int64 tensor on the card")
     b, k, c = g.shape
-    # float4 rows: C % 4 == 0 and every g row 16-byte aligned (out is fresh)
-    vec = int(c % 4 == 0 and g.data_ptr() % 16 == 0
-              and g.stride(0) % 4 == 0 and g.stride(1) % 4 == 0)
-    out = torch.empty((b, out_rows, c), dtype=torch.float32, device=g.device)
+    width = access_bytes(g)  # out is fresh, so its rows start where g's can
+    # the float32 entries take vec (float4 or not); the bf16 ones the width
+    vec = int(width == 16) if g.dtype == torch.float32 else width
+    suffix = _SUFFIX[g.dtype]
+    out = torch.empty((b, out_rows, c), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         shape = (b, k, out_rows, c, g.stride(0), g.stride(1), vec, stream)
         if entry == "sorted":
-            rc = _fn("act3d_scatter_rows_sorted_f32", 3)(
+            rc = _fn(f"act3d_scatter_rows_sorted_{suffix}", 3)(
                 g.data_ptr(), idx.data_ptr(), out.data_ptr(), *shape)
         else:
             inv = torch.empty((b, out_rows), dtype=torch.int32, device=g.device)
-            rc = _fn("act3d_scatter_rows_f32", 4)(
+            rc = _fn(f"act3d_scatter_rows_{suffix}", 4)(
                 g.data_ptr(), idx.data_ptr(), inv.data_ptr(), out.data_ptr(), *shape)
     if rc != 0:
         raise RuntimeError(f"scatter_rows launch failed: CUDA error {rc}")
     return out
+
 
 
 def scatter_rows_sorted(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Tensor:
@@ -124,11 +150,12 @@ def scatter_rows_sorted(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> to
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
     out = _launch(g, idx, out_rows, "sorted")
-    scatter_rows_sorted.launches += 1
+    count_launch(scatter_rows_sorted, g.dtype)
     return out
 
 
-scatter_rows_sorted.launches = 0  # kernel launches since the last reset
+scatter_rows_sorted.launches = 0  # float32 kernel launches since the last reset
+scatter_rows_sorted.launches_bf16 = 0  # bf16 kernel launches since the last reset
 
 
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Tensor:
@@ -137,11 +164,12 @@ def scatter_rows(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Ten
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
     out = _launch(g, idx, out_rows, "unsorted")
-    scatter_rows.launches += 1
+    count_launch(scatter_rows, g.dtype)
     return out
 
 
-scatter_rows.launches = 0  # kernel launches since the last reset
+scatter_rows.launches = 0  # float32 kernel launches since the last reset
+scatter_rows.launches_bf16 = 0  # bf16 kernel launches since the last reset
 
 
 def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
@@ -159,8 +187,9 @@ def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
     if g.device.type == "cpu":
         return scatter_rows_reference(g, idx, out_rows)
     out = _launch(g, idx, out_rows, "sorted")
-    scatter_rows_chunked.launches += 1
+    count_launch(scatter_rows_chunked, g.dtype)
     return out
 
 
-scatter_rows_chunked.launches = 0  # kernel launches since the last reset
+scatter_rows_chunked.launches = 0  # float32 kernel launches since the last reset
+scatter_rows_chunked.launches_bf16 = 0  # bf16 kernel launches since the last reset

@@ -99,9 +99,14 @@ class DiffusionHead(nn.Module):
         dim = self.embedding_dim
         b = visible_rgb.shape[0]
         rgb_feats_pyramid, pcd_pyramid = self.visual(visible_rgb, visible_pcd)
-        instr_feats = self.instruction_encoder(instruction) if self.use_instruction else None
+        # the feature inputs in the image's dtype, as JAX casts them (the
+        # poses arrive float32 from the normalisation against float32
+        # bounds); the rotary codes keep the float32 poses
+        dtype = visible_rgb.dtype
+        instr_feats = (self.instruction_encoder(instruction.to(dtype))
+                       if self.use_instruction else None)
         curr_gripper_feats = (
-            self.curr_gripper_encoder(curr_gripper)[:, None]
+            self.curr_gripper_encoder(curr_gripper.to(dtype))[:, None]
             + self.curr_gripper_embed[None].expand(b, 1, dim)
         )
         context = dict(
@@ -115,7 +120,7 @@ class DiffusionHead(nn.Module):
         )
         if self.use_goal:
             context["goal_gripper_feats"] = (
-                self.goal_gripper_encoder(goal_gripper)[:, None]
+                self.goal_gripper_encoder(goal_gripper.to(dtype))[:, None]
                 + self.goal_gripper_embed[None].expand(b, 1, dim)
             )
             context["goal_gripper_pos"] = rotary_pe_3d(goal_gripper[:, None, :3], dim)
@@ -138,9 +143,12 @@ class DiffusionHead(nn.Module):
         def drop(x):
             return dropout(x, self.dropout, gens)
 
-        traj_feats = self.traj_enc_fc2(drop(F.relu(self.traj_enc_fc1(trajectory))))
+        # the trunk in the visual features' dtype, as JAX; the trajectory
+        # keeps its own for the residual update and the rotary phases
+        dtype = context["rgb_feats_pyramid"][0].dtype
+        traj_feats = self.traj_enc_fc2(drop(F.relu(self.traj_enc_fc1(trajectory.to(dtype)))))
         traj_pos = rotary_pe_3d(trajectory[..., :3], dim)
-        time_feats = sinusoidal_pos_emb(timestep, dim)
+        time_feats = sinusoidal_pos_emb(timestep, dim).to(dtype)
         traj_time_pos = sinusoidal_pos_emb(
             torch.arange(length, device=trajectory.device), dim
         )[None].expand(b, length, dim)

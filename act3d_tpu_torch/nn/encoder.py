@@ -52,7 +52,10 @@ class VisualEncoder(nn.Module):
     def forward(self, rgb, pcd) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         b, ncam, _, h, w = rgb.shape
         feature_maps, downscale = pyramid_layout(self.image_size)
-        images = (rgb.reshape(b * ncam, 3, h, w) - self.rgb_mean) / self.rgb_std
+        # the constants in the image's dtype, as JAX's normalize_rgb: a bf16
+        # image stays bf16 into the bf16 trunk
+        mean, std = self.rgb_mean.to(rgb.dtype), self.rgb_std.to(rgb.dtype)
+        images = (rgb.reshape(b * ncam, 3, h, w) - mean) / std
         feats = self.feature_pyramid(self.backbone(images))
         clouds = pcd.reshape(b * ncam, 3, h, w)
         rgb_feats_pyramid, pcd_pyramid = [], []

@@ -1,8 +1,9 @@
 """Fine-context selection for Act3D (PyTorch).
 
 Counterpart of ``act3d_tpu/ops/geometry.py::topk_nearest_context`` and
-``gather_tokens``.  Selection is exact top-k (the JAX package's
-``approx_topk`` is a TPU feature and is not carried over).  The token
+``gather_tokens``.  Selection is exact top-k with JAX's order among ties
+(the JAX package's ``approx_topk`` is a TPU feature and is not carried
+over).  The token
 gather's backward is the row-scatter kernel of ``kernels/gather.py`` at
 every width: the TPU routing floor (``c >= 16``) and the
 ``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
@@ -21,9 +22,12 @@ def topk_nearest_context(
     anchor: torch.Tensor, point_cloud: torch.Tensor, k: int
 ) -> torch.Tensor:
     """Indices (B, k) of the k points of (B, P, 3) nearest each (B, 3)
-    anchor, nearest first."""
+    anchor, nearest first, equal distances in index order, as
+    ``lax.top_k`` orders ties (``torch.topk`` promises no order among them).
+    Ties are common under bf16 training: points whose coordinates round to
+    the same bf16 values lie at the same distance."""
     d2 = torch.sum((anchor[:, None, :] - point_cloud) ** 2, dim=-1)
-    return torch.topk(-d2, k, dim=-1).indices
+    return torch.sort(d2, dim=-1, stable=True).indices[:, :k]
 
 
 class _GatherTokens(torch.autograd.Function):

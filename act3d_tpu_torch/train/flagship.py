@@ -14,24 +14,38 @@ depth-wire batches (``data.compact.expand_batch``), then looks
 ``instr_id`` rows up in ``instr_bank``, then (training only) applies
 ``augment`` (``data.device_augment.make_device_augment``).  The functions
 take any model and criterion, so the CLIs (``main_keypose`` /
-``main_trajectory``) build them from their config.  bf16 is not ported
-yet; every kernel takes float32.
+``main_trajectory``) build them from their config.
+
+Mixed precision (``compute_dtype=torch.bfloat16``, the CLIs'
+``--mixed_precision 1``) is JAX's ``_cast_tree``: every float32 tensor of
+the model's state dict (its parameters, frozen trunk included, and the
+frozen batch norms' statistics, which are parameters in the JAX tree) and
+every float32 model input of the batch is cast to bf16, and the model runs
+on those through ``torch.func.functional_call``.  The cast is
+differentiable, so the gradients reach the float32 master parameters as
+float32 and the optimizer and checkpoints stay float32.  The loss comes
+back in float32; Act3D's outputs are cast to float32 before the criterion,
+as JAX casts them.  Evaluation stays float32, as JAX's metric functions
+apply the uncast params.  ``torch.autocast`` is not used: its op lists are
+not JAX's promotion rules, so it would compute another function.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..data.compact import expand_batch
 from ..models import Act3D, DiffusionPlanner
 from ..utils.testing import BOUNDS
 
-__all__ = ["canonical_batch", "diffusion_loss_fn", "diffusion_metrics_fn",
-           "instruction_bank_on", "keypose_loss_fn", "keypose_metrics_fn",
-           "make_diffusion_model", "make_keypose_model"]
+__all__ = ["canonical_batch", "cast_params", "diffusion_loss",
+           "diffusion_loss_fn", "diffusion_metrics_fn", "instruction_bank_on",
+           "keypose_loss_fn", "keypose_metrics_fn", "keypose_pred", "make_diffusion_model",
+           "make_keypose_model"]
 
 
 def make_diffusion_model(
@@ -94,37 +108,74 @@ def canonical_batch(batch, bank, augment=None, generators=None):
     return batch
 
 
-def _loss(model: DiffusionPlanner, batch, generators):
-    return model(
-        batch["trajectory"], batch["trajectory_mask"], batch["rgbs"], batch["pcds"],
-        batch["instr"], batch["curr_gripper"], batch["action"], generator=generators,
-    )
+def cast_params(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """{name: tensor.to(dtype)} for every float32 entry of ``model``'s state
+    dict: the tensors of JAX's params tree, cast as ``_cast_tree`` casts
+    them.  The non-persistent buffers (JAX's constants, such as the
+    workspace bounds) stay float32.  The parameters are cast as they are,
+    not detached, so a loss of the cast model backpropagates into them."""
+    return {name: t.to(dtype) for name, t in model.state_dict(keep_vars=True).items()
+            if t.dtype == torch.float32}
+
+
+def _cast_floats(tensors, dtype: Optional[torch.dtype]):
+    """The tensors (a sequence; None entries kept), float32 ones cast to
+    ``dtype`` and the others as they are; no cast when dtype is None."""
+    if dtype is None:
+        return tuple(tensors)
+    return tuple(t.to(dtype) if t is not None and t.dtype == torch.float32 else t
+                 for t in tensors)
+
+
+def _apply(model: nn.Module, compute_dtype, args, kwargs):
+    """``model(*args, **kwargs)``, or with ``compute_dtype`` the model on its
+    cast params and float32 ``args`` cast (``kwargs`` as they are)."""
+    if compute_dtype is None:
+        return model(*args, **kwargs)
+    return torch.func.functional_call(model, cast_params(model, compute_dtype),
+                                      _cast_floats(args, compute_dtype), kwargs)
+
+
+def diffusion_loss(model: DiffusionPlanner, batch, generators, compute_dtype=None,
+                   **draws) -> torch.Tensor:
+    """The float32 loss of one canonical batch (every key cast but the
+    mask, as JAX's diffusion_loss_fn); ``draws``: ``noise`` / ``timesteps``
+    injected by tests."""
+    loss = _apply(model, compute_dtype,
+                  [batch[k] for k in ("trajectory", "trajectory_mask", "rgbs", "pcds",
+                                      "instr", "curr_gripper", "action")],
+                  dict(generator=generators, **draws))
+    return loss.float()
 
 
 def _device_of(model):
     return next(model.parameters()).device
 
 
-def diffusion_loss_fn(model: DiffusionPlanner, augment=None, instr_bank=None):
+def diffusion_loss_fn(model: DiffusionPlanner, compute_dtype=None, augment=None,
+                      instr_bank=None):
     """(batch, generators) -> (loss, aux) for the Trainer (training mode:
-    dropout on).  ``augment``: an on-device ``(batch, generator) -> batch``
-    drawing from ``generators.device``, for a dataset built with
-    ``augment_host=False``; ``instr_bank``: the (n_rows, 53, 512) bank of
-    ``instr_id`` batches."""
+    dropout on).  ``compute_dtype=torch.bfloat16`` runs the network in bf16
+    with float32 master weights and a float32 loss (module docstring).
+    ``augment``: an on-device ``(batch, generator) -> batch`` drawing from
+    ``generators.device``, for a dataset built with ``augment_host=False``;
+    ``instr_bank``: the (n_rows, 53, 512) bank of ``instr_id`` batches."""
     bank = instruction_bank_on(instr_bank, _device_of(model))
 
     def loss_fn(batch, generators):
-        return _loss(model, canonical_batch(batch, bank, augment, generators), generators), {}
+        batch = canonical_batch(batch, bank, augment, generators)
+        return diffusion_loss(model, batch, generators, compute_dtype), {}
 
     return loss_fn
 
 
 def diffusion_metrics_fn(model: DiffusionPlanner, instr_bank=None):
-    """(batch, generators) -> eval metric dict (the loss in eval mode)."""
+    """(batch, generators) -> eval metric dict (the loss in eval mode, in
+    float32)."""
     bank = instruction_bank_on(instr_bank, _device_of(model))
 
     def metrics_fn(batch, generators):
-        return {"noise_mse": _loss(model, canonical_batch(batch, bank), generators)}
+        return {"noise_mse": diffusion_loss(model, canonical_batch(batch, bank), generators)}
 
     return metrics_fn
 
@@ -152,18 +203,36 @@ def make_keypose_model(
     )
 
 
-def _keypose_pred(model: Act3D, batch, generators, use_gt_sampling: bool):
-    return model(
-        batch["rgbs"], batch["pcds"], batch["instr"], batch["curr_gripper"],
-        generator=generators.device,
-        gt_action=batch["action"] if use_gt_sampling else None,
-    )
+def _to_float(tree):
+    """Every bf16 tensor of a (nested list / dict) model output cast to
+    float32, as JAX casts Act3D's outputs before the criterion."""
+    if isinstance(tree, dict):
+        return {k: _to_float(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_float(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
 
 
-def keypose_loss_fn(model: Act3D, criterion, use_gt_sampling: bool = True, augment=None,
-                    instr_bank=None):
+def keypose_pred(model: Act3D, batch, generators, use_gt_sampling: bool,
+                 compute_dtype=None, **draws):
+    """Act3D's outputs on one canonical batch, float32 whatever
+    ``compute_dtype`` (the four observation keys are cast, ``gt_action``
+    is not, as in JAX's keypose_loss_fn); ``draws``: ``ghost_uniforms`` or
+    ``ghost_points_override`` injected by tests."""
+    out = _apply(model, compute_dtype,
+                 [batch[k] for k in ("rgbs", "pcds", "instr", "curr_gripper")],
+                 dict(generator=None if generators is None else generators.device,
+                      gt_action=batch["action"] if use_gt_sampling else None, **draws))
+    return _to_float(out)
+
+
+def keypose_loss_fn(model: Act3D, criterion, compute_dtype=None, use_gt_sampling: bool = True,
+                    augment=None, instr_bank=None):
     """(batch, generators) -> (loss, aux dict of detached sub-losses) for the
-    Trainer (training mode: ``num_ghost_points``).  ``use_gt_sampling``
+    Trainer (training mode: ``num_ghost_points``).  ``compute_dtype`` as in
+    :func:`diffusion_loss_fn`; the losses are float32.  ``use_gt_sampling``
     centres the fine ghost-point balls on the ground-truth position
     (reference --use_ground_truth_position_for_sampling_train, on by
     default).  Ghost points come from the device generator, after the
@@ -174,7 +243,8 @@ def keypose_loss_fn(model: Act3D, criterion, use_gt_sampling: bool = True, augme
     def loss_fn(batch, generators):
         batch = canonical_batch(batch, bank, augment, generators)
         losses = criterion.compute_loss(
-            _keypose_pred(model, batch, generators, use_gt_sampling), batch["action"])
+            keypose_pred(model, batch, generators, use_gt_sampling, compute_dtype),
+            batch["action"])
         return sum(losses.values()), {k: v.detach() for k, v in losses.items()}
 
     return loss_fn
@@ -190,7 +260,7 @@ def keypose_metrics_fn(model: Act3D, criterion, use_gt_sampling: bool = False,
 
     def metrics_fn(batch, generators):
         batch = canonical_batch(batch, bank)
-        pred = _keypose_pred(model, batch, generators, use_gt_sampling)
+        pred = keypose_pred(model, batch, generators, use_gt_sampling)
         return criterion.compute_metrics(pred, batch["action"])
 
     return metrics_fn

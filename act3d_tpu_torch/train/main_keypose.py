@@ -89,8 +89,9 @@ def main(argv=None):
         symmetric_rotation_loss=bool(cfg.symmetric_rotation_loss),
     )
     bank = train_ds.instruction_bank
+    compute_dtype = torch.bfloat16 if cfg.mixed_precision else None
     trainer = Trainer(
-        keypose_loss_fn(model, criterion,
+        keypose_loss_fn(model, criterion, compute_dtype,
                         bool(cfg.use_ground_truth_position_for_sampling_train),
                         augment=augment, instr_bank=bank),
         model,

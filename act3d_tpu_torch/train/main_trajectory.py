@@ -83,7 +83,9 @@ def main(argv=None):
     )
     print("Model parameters:", count_parameters(model))
     bank = train_ds.instruction_bank
-    trainer = Trainer(diffusion_loss_fn(model, augment=augment, instr_bank=bank), model,
+    compute_dtype = torch.bfloat16 if cfg.mixed_precision else None
+    trainer = Trainer(diffusion_loss_fn(model, compute_dtype, augment=augment, instr_bank=bank),
+                      model,
                       metrics_fn=diffusion_metrics_fn(model, instr_bank=bank), lr=cfg.lr,
                       accumulate_grad_batches=cfg.accumulate_grad_batches,
                       log_dir=cfg.log_dir, seed=cfg.seed,

@@ -129,12 +129,38 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      --num_workers W, 24 steps likewise; then the feeder wait per step and
      the peak memory of each CLI with (steps 12-) and without (the steps
      before the first evaluation) the host-path flags.
+bf16 mixed precision (--mixed_precision 1) adds, in this order among the
+phases above:
+ 13b. kernels_bf16: the bf16 entry of every kernel at every shape of both
+     bf16 training steps (the fused-MHA forward and backward at the sites
+     of 6 and 11, the core at the sites of 12, the three row scatters at
+     the Act3D fine level) against its bf16 plain version and the float32
+     plain version on the same bf16-rounded inputs: the kernel's error
+     against float32 at most twice the plain bf16 version's plus one bf16
+     ulp of the output's scale (kernels.bf16_errors; the gradients with a
+     floor of float32 noise), stats at atol 2e-5 / rtol 1e-4, repeats
+     bit-identical, the row scatters bit-exact, the dropout zero pattern the
+     float32 kernel's for one seed; device times of each kernel, its plain
+     bf16 version and SDPA / scatter_ in bf16 beside the bf16 bound (989
+     TFLOP/s dense bf16, 3.35 TB/s).
+  9b. small bf16 steps: one step of a small ChainedDiffuser and Act3D in
+     bf16 on the card against the CPU: losses within 2e-2, the whole
+     gradient within cosine 0.99 / relative L2 5e-2, gradients float32.
+ 11b. train_bf16 / train_act3d_bf16: phases 10 and 11 with
+     compute_dtype=torch.bfloat16: 19 + 19 and 18 + 18 + 2 launches of the
+     bf16 entries per step and none of the float32 ones (Act3D's evaluation
+     runs the float32 forward, as JAX evaluates uncast), params, AdamW
+     moments and gradients float32 (as in phases 10 and 11, which check the
+     same), step times and peak memory.
+ Phases 18 and 19 train with --mixed_precision 1 (their launches per step
+ are the bf16 entries').
 Then the samplers' fork server and resource tracker are stopped (they
 would outlive the script by seconds), and the script fails if any process
 it started is left.
 Every main-path phase (serve, train, train_act3d and the five CLIs) runs
 with all launch counts set to 0 just before it and read just after.
-The second-to-last line is a JSON object of kernel numbers (six kernels);
+The second-to-last line is a JSON object of kernel numbers (six kernels
+and their six bf16 entries);
 the last is {"ok": true, "device": {...}}.  Without a card it exits
 non-zero before printing any result.
 """
@@ -172,7 +198,7 @@ from act3d_tpu_torch.data.pipeline import (
 from act3d_tpu_torch.device import float32_precision, resolve_device
 from act3d_tpu_torch.eval import main as eval_main
 from act3d_tpu_torch.eval.actioner import Actioner
-from act3d_tpu_torch.kernels import _build
+from act3d_tpu_torch.kernels import BWD_FLOOR, _build, bf16_errors
 from act3d_tpu_torch.kernels import gather as gather_kernels
 from act3d_tpu_torch.kernels.attention import (
     attention_core,
@@ -198,9 +224,11 @@ from act3d_tpu_torch.ops.geometry import topk_nearest_context
 from act3d_tpu_torch.train import main_keypose, main_trajectory
 from act3d_tpu_torch.train.engine import Trainer
 from act3d_tpu_torch.train.flagship import (
+    diffusion_loss,
     diffusion_loss_fn,
     keypose_loss_fn,
     keypose_metrics_fn,
+    keypose_pred,
     make_diffusion_model,
     make_keypose_model,
 )
@@ -219,6 +247,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_TC_F32_FLOPS = 495e12 / 3
 EXP_PER_CLOCK = 132 * 16  # exponentials per clock: 132 SMs x 16 special-function lanes
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 BOUNDS = ((-0.3, -0.5, 0.75), (0.7, 0.5, 1.5))
 SEED = 0
 
@@ -249,10 +278,31 @@ KEYPOSE_KEYS = ("rgbs", "pcds", "instr", "curr_gripper")
 # P = 128*128*3 points (levels 1 and 2 read the 128^2 res1 map), C = 60
 GATHER_B, GATHER_K, GATHER_P, GATHER_C = TRAIN_B, 32 * 32 * NCAM, 128 * 128 * NCAM, 60
 CHUNKED_DEFAULTS = (256, 4)  # JAX's p_tile and n_chunks
-# Every kernel of the port, by the name the kernel line gives it.
-KERNELS = {"fused_mha_fwd": fused_mha_forward, "fused_mha_bwd": fused_mha_backward,
-           "scatter_rows_sorted": scatter_rows_sorted, "scatter_rows": scatter_rows,
-           "scatter_rows_chunked": scatter_rows_chunked, "attention_core": attention_core}
+# Every kernel of the port, by the name the kernel line gives it: the
+# wrapper and its launch counter (float32 entries count in ``launches``,
+# the bf16 entries of --mixed_precision 1 in ``launches_bf16``).
+_WRAPPERS = {"fused_mha_fwd": fused_mha_forward, "fused_mha_bwd": fused_mha_backward,
+             "scatter_rows_sorted": scatter_rows_sorted, "scatter_rows": scatter_rows,
+             "scatter_rows_chunked": scatter_rows_chunked, "attention_core": attention_core}
+KERNELS = {**{name: (fn, "launches") for name, fn in _WRAPPERS.items()},
+           **{f"{name}_bf16": (fn, "launches_bf16") for name, fn in _WRAPPERS.items()}}
+
+
+def launch_counts() -> tuple:
+    """Every kernel's launch count, in KERNELS order."""
+    return tuple(getattr(fn, attr) for fn, attr in KERNELS.values())
+
+
+def per_unit_launches(**counts) -> tuple:
+    """Launches per step or keystep in KERNELS order: the named ones, 0
+    for the others."""
+    assert set(counts) <= set(KERNELS), counts
+    return tuple(counts.get(name, 0) for name in KERNELS)
+
+
+def nonzero(launches) -> dict:
+    """The kernels a tuple in KERNELS order launched, with their counts."""
+    return {name: n for name, n in zip(KERNELS, launches) if n}
 # The training CLIs at their reference scripts' flags (scripts/train_act3d.sh,
 # scripts/train_trajectory.sh) over a fixture tree of CLI_EPISODES episodes.
 REPO = Path(__file__).resolve().parent
@@ -286,6 +336,10 @@ def trajectory_host_path_flags(workers):
     return ["--wire", "depth", "--instr_mode", "ids", "--num_workers", str(workers)]
 
 
+# --mixed_precision 1, on the host-path CLI phases; the phases that train in bf16
+BF16_CLI_FLAGS = ["--mixed_precision", "1"]
+BF16_PHASES = ("train_bf16", "train_act3d_bf16", "cli_keypose_host_path",
+               "cli_trajectory_host_path")
 HOST_REPEATS = 5
 WIRE_TOL = 5e-4
 # steps of the host-path CLI phases, one evaluation at the end: the second
@@ -1039,37 +1093,282 @@ def phase_small_keypose(dev):
           f"{len(runs[0][1])} gradients bit-identical", flush=True)
 
 
-def phase_train(dev, card):
-    """Trainer steps of the flagship ChainedDiffuser at batch 16."""
-    torch.manual_seed(SEED)
-    model = make_diffusion_model(device=dev)
-    batch = synthetic_trajectory_batch(TRAIN_B, NCAM, (256, 256), TRAJ_LEN, seed=SEED,
-                                       device=dev)
-    trainer = Trainer(diffusion_loss_fn(model), model, lr=1e-4, weight_decay=5e-4, seed=SEED)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    per_step = planner_sites_per_denoise()
-    assert per_step == sum(r[-1] for r in TRAIN_SHAPES) == 19, per_step
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    steps = []
-    for i in range(TRAIN_STEPS):
-        fwd0, bwd0 = fused_mha_forward.launches, fused_mha_backward.launches
-        t0 = time.perf_counter()
-        loss = trainer.step(batch)["loss"].item()
+def bf16_bound(flops, nbytes):
+    """The bf16 bound: operations at the dense bf16 tensor-core peak, bytes
+    at 3.35 TB/s."""
+    return _bound_row(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def bf16_mha_work(l, s, e, h, b, masked, backward):
+    """FLOPs and bytes of one bf16 forward or backward call: the (B, L, E)
+    and (B, S, E) tensors in 2 bytes, the stats in 4; each read or written
+    once (forward: q, k, v, out, stats; backward: q, out, dO, k, v, stats
+    read, dq, dk, dv written)."""
+    flops = (10.0 if backward else 4.0) * b * l * s * e
+    per = 4 if backward else 2
+    nbytes = (2.0 * (per * b * l * e + per * b * s * e) + 4.0 * 2 * b * l * h
+              + (b * s if masked else 0))
+    return flops, nbytes
+
+
+def _bf16_row(errs, **extra):
+    """A bf16 kernel row: the error of the kernel against its bf16 plain
+    version (max_abs_err) and of both against the float32 plain version."""
+    return dict(max_abs_err=errs["max_abs_err"], kernel_vs_f32=errs["kernel_vs_f32"],
+                plain_vs_f32=errs["plain_vs_f32"], err_bound=errs["bound"], **extra)
+
+
+def phase_kernels_bf16(dev, card):
+    """The bf16 entries of every kernel at every shape the bf16 training
+    steps launch, against their bf16 plain versions (which round where the
+    TPU kernels round) and the float32 plain version on the same
+    bf16-rounded inputs: each result within bf16_errors' bound (the
+    gradients' with the float32-noise floor), the stats at atol 2e-5 / rtol
+    1e-4, repeats bit-identical, the row scatters bit-exact; the dropout
+    zero pattern equal to the float32 kernel's for one seed; device times
+    of each kernel, its bf16 plain version and one PyTorch call in bf16
+    (SDPA, scatter_) beside the bf16 bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    side = torch.cuda.Stream()
+    bf = torch.bfloat16
+    rows = {f"{name}_bf16": [] for name in _WRAPPERS}
+    sites = ([(site, l, s_, kind, rate, n, PLANNER_CFG["embedding_dim"], 8)
+              for site, l, s_, kind, rate, n in TRAIN_SHAPES]
+             + [(site, l, s_, kind, rate, n, ACT3D_CFG["embedding_dim"],
+                 ACT3D_CFG["num_attn_heads"]) for site, l, s_, kind, rate, n in KEYPOSE_SHAPES])
+    b = TRAIN_B
+    for i, (site, l, s, kind, rate, per_step, e, h) in enumerate(sites):
+        d = e // h
+        mask = train_mask(kind, b, s, dev)
+        seed = 7000 + i if rate else None
+        q = (torch.randn(b, l, e, generator=gen, device=dev) * d ** -0.5).to(bf)
+        k, v, g = (torch.randn(b, n, e, generator=gen, device=dev).to(bf) for n in (s, s, l))
+        f32 = [x.float() for x in (q, k, v, g)]
+        out, stats = fused_mha_forward(q, k, v, h, mask, True, rate, seed)
+        grads = fused_mha_backward(q, k, v, out, stats, g, h, mask, rate, seed)
+        again = (*fused_mha_forward(q, k, v, h, mask, True, rate, seed),
+                 *fused_mha_backward(q, k, v, out, stats, g, h, mask, rate, seed))
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launched = (fused_mha_forward.launches - fwd0, fused_mha_backward.launches - bwd0)
-        assert np.isfinite(loss), loss
-        assert launched == (per_step, per_step), launched
-        steps.append(dict(step=i, seconds=seconds, loss=loss, fwd_launches=launched[0],
-                          bwd_launches=launched[1]))
-        print(f"train step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f}, {launched[0]} "
-              f"fused_mha_fwd + {launched[1]} fused_mha_bwd launches | {card}", flush=True)
-    launches = (fused_mha_forward.launches, fused_mha_backward.launches)
-    assert scatter_rows_sorted.launches == scatter_rows.launches == 0
-    peak = torch.cuda.max_memory_allocated()
+        assert all(torch.equal(a, c) for a, c in zip((out, stats, *grads), again)), site
+        plain_out, plain_stats = fused_mha_forward_reference(q, k, v, h, mask, rate, seed)
+        ref_out, _ = fused_mha_forward_reference(*f32[:3], h, mask, rate, seed)
+        fwd = bf16_errors(out, plain_out, ref_out)
+        torch.testing.assert_close(stats, plain_stats, atol=ATOL, rtol=RTOL)
+        plain_g = fused_mha_backward_reference(q, k, v, out, stats, g, h, mask, rate, seed)
+        ref_g = fused_mha_backward_reference(*f32[:3], out.float(), stats, f32[3], h, mask,
+                                             rate, seed)
+        bwd = [bf16_errors(*t, BWD_FLOOR) for t in zip(grads, plain_g, ref_g)]
+        print(f"kernels_bf16 {site:28s} B={b} L={l} S={s} E={e} H={h} rate={rate} "
+              f"mask={kind}: fwd vs plain bf16 {fwd['max_abs_err']:.3e}, vs float32 kernel "
+              f"{fwd['kernel_vs_f32']:.3e} plain {fwd['plain_vs_f32']:.3e} (bound "
+              f"{fwd['bound']:.3e}) | bwd dq/dk/dv vs plain bf16 "
+              + "/".join(f"{x['max_abs_err']:.3e}" for x in bwd) + ", vs float32 kernel "
+              + "/".join(f"{x['kernel_vs_f32']:.3e}" for x in bwd) + " plain "
+              + "/".join(f"{x['plain_vs_f32']:.3e}" for x in bwd) + " (bound "
+              + "/".join(f"{x['bound']:.3e}" for x in bwd) + "); repeats bit-identical",
+              flush=True)
+        assert fwd["ok"] and all(x["ok"] for x in bwd), (site, fwd, bwd)
+
+        iters = 20 if b * l * s > 1e6 else 100
+        fwd_ms = device_ms(lambda: fused_mha_forward(q, k, v, h, mask, False, rate, seed),
+                           iters, side)
+        bwd_ms = device_ms(lambda: fused_mha_backward(q, k, v, out, stats, g, h, mask, rate,
+                                                      seed), iters, side)
+        fwd_plain = device_ms(lambda: fused_mha_forward_reference(q, k, v, h, mask, rate, seed),
+                              iters, side)
+        bwd_plain = device_ms(lambda: fused_mha_backward_reference(
+            q, k, v, out, stats, g, h, mask, rate, seed), iters, side)
+        qh, kh, vh, gh = (x.reshape(b, -1, h, d).transpose(1, 2).contiguous()
+                          for x in (q, k, v, g))
+        qh, kh, vh = (x.requires_grad_() for x in (qh, kh, vh))
+        attn_mask = None if mask is None else ~mask[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attn_mask, scale=1.0)
+
+        with torch.no_grad():
+            lib_fwd = device_ms(sdpa, iters, side)
+        lib_bwd = device_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), gh), iters,
+                            side) - lib_fwd
+        common = dict(site=site, B=b, L=l, S=s, E=e, H=h, mask=kind, rate=rate,
+                      per_step=per_step)
+        rows["fused_mha_fwd_bf16"].append(_bf16_row(
+            fwd, **common, ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, False)),
+            **plan_row(fwd_plan(b, l, s, h, d))))
+        worst = max(bwd, key=lambda x: x["kernel_vs_f32"] - x["bound"])
+        rows["fused_mha_bwd_bf16"].append(_bf16_row(
+            worst, **common, ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
+            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, True)),
+            **plan_row(bwd_plan(b, l, s, h, d))))
+        fr, br = rows["fused_mha_fwd_bf16"][-1], rows["fused_mha_bwd_bf16"][-1]
+        print(f"kernels_bf16 {site:28s} fwd {fwd_ms:.4f} ms (plain bf16 {fwd_plain:.4f}, sdpa "
+              f"bf16 {lib_fwd:.4f}, bf16 bound {fr['bound_ms']:.5f} {fr['bound_by']}) | bwd "
+              f"{bwd_ms:.4f} ms (plain bf16 {bwd_plain:.4f}, sdpa bf16 {lib_bwd:.4f}, bf16 "
+              f"bound {br['bound_ms']:.5f} {br['bound_by']}) | {card}", flush=True)
+
+    # the dropout zero pattern: with v the identity of each head (S <= d),
+    # out is the kept weights, zero where dropped
+    h, d, l, s, rate = 8, PLANNER_CFG["embedding_dim"] // 8, TRAJ_LEN, 15, DROPOUT
+    q = torch.randn(TRAIN_B, l, h * d, generator=gen, device=dev) * d ** -0.5
+    k = torch.randn(TRAIN_B, s, h * d, generator=gen, device=dev)
+    v = torch.eye(s, d, device=dev).repeat(TRAIN_B, 1, h)
+    zeros = [(fused_mha_forward(q.to(dt), k.to(dt), v.to(dt), h, None, dropout_rate=rate,
+                                dropout_seed=99).reshape(TRAIN_B, l, h, d)[..., :s]
+              .transpose(1, 2) == 0) for dt in (torch.float32, bf)]
+    keep = dropout_keep(99, TRAIN_B, h, l, s, rate, dev)
+    assert torch.equal(zeros[1], zeros[0]) and torch.equal(zeros[0], ~keep)
+    print(f"kernels_bf16 dropout pattern (B={TRAIN_B}, L={l}, S={s}, H={h}, rate {rate}, seed "
+          f"99): the bf16 kernel drops the float32 kernel's {int(zeros[0].sum())} weights "
+          f"exactly", flush=True)
+
+    # the single-head-layout core (no model path) at every flattened site
+    for site, bh, l, s, kind, per_step in attention_core_sites():
+        b_mask = train_mask(kind, TRAIN_B, s, dev)
+        mask = (None if b_mask is None
+                else b_mask.repeat_interleave(bh // TRAIN_B, dim=0).contiguous())
+        q = (torch.randn(bh, l, 15, generator=gen, device=dev) * 15 ** -0.5).to(bf)
+        k, v = (torch.randn(bh, s, 15, generator=gen, device=dev).to(bf) for _ in range(2))
+        out = attention_core_forward(q, k, v, mask)
+        assert torch.equal(out, attention_core_forward(q, k, v, mask)), site
+        errs = bf16_errors(out, attention_core_reference(q, k, v, mask),
+                           attention_core_reference(q.float(), k.float(), v.float(), mask))
+        assert errs["ok"], (site, errs)
+        iters = 20 if bh * l * s > 1e6 else 100
+        attn_mask = None if mask is None else ~mask[:, None, None, :]
+        nbytes = 2.0 * (2 * bh * l * 15 + 2 * bh * s * 15) + (bh * s if mask is not None else 0)
+        rows["attention_core_bf16"].append(_bf16_row(
+            errs, site=site, BH=bh, L=l, S=s, D=15, mask=kind, per_step=per_step,
+            ms=device_ms(lambda: attention_core_forward(q, k, v, mask), iters, side),
+            plain_ms=device_ms(lambda: attention_core_reference(q, k, v, mask), iters, side),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], attn_mask=attn_mask, scale=1.0),
+                iters, side),
+            **bf16_bound(4.0 * bh * l * s * 15, nbytes)))
+        r = rows["attention_core_bf16"][-1]
+        print(f"kernels_bf16 attention_core {site:20s} BH={bh} L={l} S={s}: vs plain bf16 "
+              f"{r['max_abs_err']:.3e}, vs float32 kernel {r['kernel_vs_f32']:.3e} plain "
+              f"{r['plain_vs_f32']:.3e} (bound {r['err_bound']:.3e}) | {r['ms']:.4f} ms (plain "
+              f"bf16 {r['plain_ms']:.4f}, sdpa bf16 {r['library_ms']:.4f}, bf16 bound "
+              f"{r['bound_ms']:.5f} {r['bound_by']}) | {card}", flush=True)
+
+    # the row scatters at the Act3D fine level, bit-exact
+    b, kk, p, c = GATHER_B, GATHER_K, GATHER_P, GATHER_C
+    idx = gather_indices("topk_nearest", gen, dev, b, kk, p)
+    g = torch.randn(b, kk, c, generator=gen, device=dev).to(bf)
+    perm = torch.randperm(kk, generator=gen, device=dev)
+    g_any, idx_any = g[:, perm].contiguous(), idx[:, perm].contiguous()
+    want = scatter_rows_reference(g, idx, p)
+    plain_ms = device_ms(lambda: scatter_rows_reference(g, idx, p), 20, side)
+    library_ms = device_ms(lambda: g.new_zeros(b, p, c).scatter_(
+        1, idx[..., None].expand(-1, -1, c), g), 20, side)
+    bound = bf16_bound(0.0, 2.0 * b * p * c + 2.0 * b * kk * c + 8.0 * b * kk)
+    for name, fn, per_step in (
+            ("scatter_rows_sorted_bf16", lambda: scatter_rows_sorted(g, idx, p), 2),
+            ("scatter_rows_bf16", lambda: scatter_rows(g_any, idx_any, p), 0),
+            ("scatter_rows_chunked_bf16",
+             lambda: scatter_rows_chunked(g, idx, p, *CHUNKED_DEFAULTS), 0)):
+        got = fn()
+        torch.cuda.synchronize()
+        assert got.dtype == bf and torch.equal(got, want), name
+        ms = device_ms(fn, 20, side)
+        rows[name].append(dict(site="act3d.fine_gather.topk_nearest", B=b, K=kk, P=p, C=c,
+                               per_step=per_step, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms,
+                               access_bytes=gather_kernels.access_bytes(g), **bound))
+        print(f"kernels_bf16 {name:26s} B={b} K={kk} P={p} C={c}: bit-exact, {ms:.4f} ms "
+              f"({gather_kernels.access_bytes(g)}-byte accesses; plain bf16 {plain_ms:.4f}, "
+              f"scatter_ bf16 {library_ms:.4f}, bf16 bound {bound['bound_ms']:.5f} bytes) | "
+              f"{card}", flush=True)
+    return rows
+
+
+def phase_small_bf16(dev):
+    """One small bf16 step of each model on the card against the same step
+    on the CPU (plain versions; the same weights, injected draws, dropout
+    off): the losses within 2e-2 relative and the whole trained gradient
+    within cosine 0.99 / relative L2 5e-2, the bounds of
+    tests/test_torch_bf16.py against JAX; every gradient float32."""
+    criterion = KeyposeLossAndMetrics()
+    rng = np.random.default_rng(SEED)
+    lo, hi = np.asarray(BOUNDS, np.float32)
+    traj = synthetic_trajectory_batch(2, 2, (64, 64), 8, seed=SEED)
+    traj["trajectory_mask"][1, -3:] = True
+    noise = torch.from_numpy(rng.normal(size=(2, 8, 9)).astype(np.float32))
+    kp = synthetic_keypose_batch(2, 1, (128, 128), seed=SEED)
+    ghosts = [torch.from_numpy(rng.uniform(lo, hi, (2, 20, 3)).astype(np.float32))
+              for _ in range(2)]
+
+    def diffusion(model, device):
+        batch = {k: v.to(device) for k, v in traj.items()}
+        return diffusion_loss(model.eval(), batch, None, torch.bfloat16,
+                              noise=noise.to(device), timesteps=torch.tensor([3, 71]).to(device))
+
+    def keypose(model, device):
+        batch = {k: v.to(device) for k, v in kp.items()}
+        pred = keypose_pred(model.train(), batch, None, True, torch.bfloat16,
+                            ghost_points_override=[x.to(device) for x in ghosts])
+        return sum(criterion.compute_loss(pred, batch["action"]).values())
+
+    for name, make, cfg, run in (
+            ("diffusion", make_diffusion_model,
+             dict(image_size=(64, 64), embedding_dim=24, num_query_cross_attn_layers=3),
+             diffusion),
+            ("keypose", make_keypose_model,
+             dict(image_size=(128, 128), embedding_dim=24, num_ghost_points=40,
+                  num_sampling_level=2), keypose)):
+        torch.manual_seed(SEED)
+        cpu_model = make(**cfg, device="cpu")
+        card_model = make(**cfg, device=dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        out = []
+        for model, device in ((cpu_model, "cpu"), (card_model, dev)):
+            loss = run(model, device)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+                     if p.grad is not None and "backbone" not in n}
+            assert loss.dtype == torch.float32 and all(
+                p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
+            out.append((loss.item(), grads))
+        (cpu_loss, cpu_grads), (card_loss, card_grads) = out
+        assert cpu_grads.keys() == card_grads.keys() and len(cpu_grads) > 50
+        gc_, gg = (torch.cat([g[n].flatten() for n in cpu_grads]) for g in (cpu_grads, card_grads))
+        cos = F.cosine_similarity(gg, gc_, dim=0).item()
+        rel = ((gg - gc_).norm() / gc_.norm()).item()
+        print(f"small bf16 {name} step: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; "
+              f"{len(cpu_grads)} gradients, card vs CPU cosine {cos:.5f}, relative L2 "
+              f"{rel:.3e}", flush=True)
+        assert abs(card_loss - cpu_loss) <= 2e-2 * abs(cpu_loss), (card_loss, cpu_loss)
+        assert cos >= 0.99 and rel <= 5e-2, (cos, rel)
+
+
+def check_master_state(model, optimizer, loss_fn, batch, generators) -> int:
+    """Mixed precision keeps its master state in float32: the parameters,
+    AdamW's moments, and the gradients of one more backward (taken here,
+    not stepped).  Returns the number of gradients checked."""
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    state = optimizer.state_dict()["state"]
+    assert state and all(v.dtype == torch.float32 for st in state.values()
+                         for v in st.values() if torch.is_tensor(v) and v.is_floating_point())
+    model.train()
+    loss, _ = loss_fn(batch, generators)
+    assert loss.dtype == torch.float32, loss.dtype
+    loss.backward()
+    grads = [p.grad for p in model.parameters() if p.requires_grad and p.grad is not None]
+    assert len(grads) > 50 and all(g.dtype == torch.float32 for g in grads)
+    model.zero_grad(set_to_none=True)
+    return len(grads)
+
+
+def _counter(compute_dtype) -> str:
+    """The launch counter of the kernel entries a step in compute_dtype uses."""
+    return "launches" if compute_dtype is None else "launches_bf16"
+
+
+def check_trained(model, before):
+    """The backbone bit-identical; every other tensor changed but the
+    biases of FPN levels the model does not read (zero gradient, no decay).
+    Returns the number changed."""
     changed, unchanged = 0, []
     for n, p in model.named_parameters():
         if "backbone" in n:
@@ -1078,28 +1377,74 @@ def phase_train(dev, card):
             unchanged.append(n)
         else:
             changed += 1
-    # only the biases of FPN levels the model does not read (zero gradient,
-    # no decay) may stay as they were
     assert changed and all("feature_pyramid" in n and n.endswith("bias")
                            for n in unchanged), unchanged
+    return changed
+
+
+def phase_train(dev, card, compute_dtype=None):
+    """Trainer steps of the flagship ChainedDiffuser at batch 16, in float32
+    or, with compute_dtype bf16, as --mixed_precision 1 trains (the bf16
+    kernel entries, float32 master state)."""
+    tag = "train" if compute_dtype is None else "train_bf16"
+    attr = _counter(compute_dtype)
+    torch.manual_seed(SEED)
+    model = make_diffusion_model(device=dev)
+    batch = synthetic_trajectory_batch(TRAIN_B, NCAM, (256, 256), TRAJ_LEN, seed=SEED,
+                                       device=dev)
+    loss_fn = diffusion_loss_fn(model, compute_dtype)
+    trainer = Trainer(loss_fn, model, lr=1e-4, weight_decay=5e-4, seed=SEED)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    per_step = planner_sites_per_denoise()
+    assert per_step == sum(r[-1] for r in TRAIN_SHAPES) == 19, per_step
+    counters = (fused_mha_forward, fused_mha_backward)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        start = [getattr(fn, attr) for fn in counters]
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = tuple(getattr(fn, attr) - n for fn, n in zip(counters, start))
+        assert np.isfinite(loss), loss
+        assert launched == (per_step, per_step), launched
+        steps.append(dict(step=i, seconds=seconds, loss=loss, fwd_launches=launched[0],
+                          bwd_launches=launched[1]))
+        print(f"{tag} step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f}, {launched[0]} "
+              f"fused_mha_fwd + {launched[1]} fused_mha_bwd launches ({attr}) | {card}",
+              flush=True)
+    launches = tuple(getattr(fn, attr) for fn in counters)
+    peak = torch.cuda.max_memory_allocated()
+    changed = check_trained(model, before)
+    grads = check_master_state(model, trainer.optimizer, loss_fn, batch, trainer.generators)
+    assert all(fn.launches == fn.launches_bf16 == 0
+               for fn in (scatter_rows_sorted, scatter_rows))
     warm = [s["seconds"] for s in steps[1:]]
-    print(f"train: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps 1-{TRAIN_STEPS - 1}; "
+    print(f"{tag}: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps 1-{TRAIN_STEPS - 1}; "
           f"min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f}); peak memory "
           f"{peak / 2**20:.1f} MiB, resident before the first step {resident / 2**20:.1f} MiB; "
-          f"{changed} trainable tensors changed, backbone unchanged | {card}", flush=True)
+          f"{changed} trainable tensors changed, backbone unchanged; params, AdamW moments "
+          f"and {grads} gradients float32 | {card}", flush=True)
     return launches, steps, dict(peak_memory_bytes=peak, resident_memory_bytes=resident)
 
 
-def phase_train_act3d(dev, card):
-    """Trainer steps of the flagship Act3D keypose model at batch 16, then
-    one evaluation at 10000 ghost points."""
+def phase_train_act3d(dev, card, compute_dtype=None):
+    """Trainer steps of the flagship Act3D keypose model at batch 16 (in
+    float32, or in bf16 as phase_train), then one evaluation at 10000
+    ghost points, in float32 either way."""
+    tag = "train_act3d" if compute_dtype is None else "train_act3d_bf16"
+    attr = _counter(compute_dtype)
     torch.manual_seed(SEED)
     model = make_keypose_model(device=dev)
     batch = synthetic_keypose_batch(TRAIN_B, NCAM, (256, 256), seed=SEED, device=dev)
     criterion = KeyposeLossAndMetrics()
-    trainer = Trainer(keypose_loss_fn(model, criterion), model,
-                      metrics_fn=keypose_metrics_fn(model, criterion), lr=1e-4,
-                      weight_decay=5e-4, seed=SEED)
+    loss_fn = keypose_loss_fn(model, criterion, compute_dtype)
+    trainer = Trainer(loss_fn, model, metrics_fn=keypose_metrics_fn(model, criterion),
+                      lr=1e-4, weight_decay=5e-4, seed=SEED)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     per_step = KEYPOSE_LEVELS * (ACT3D_CFG["num_vis_ins_attn_layers"]
                                  + ACT3D_CFG["num_ghost_point_cross_attn_layers"]
@@ -1113,52 +1458,45 @@ def phase_train_act3d(dev, card):
     resident = torch.cuda.memory_allocated()
     steps = []
     for i in range(TRAIN_STEPS):
-        start = [fn.launches for fn in counters]
+        start = [getattr(fn, attr) for fn in counters]
         t0 = time.perf_counter()
         out = trainer.step(batch)
         loss = out["loss"].item()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launched = tuple(fn.launches - n for fn, n in zip(counters, start))
+        launched = tuple(getattr(fn, attr) - n for fn, n in zip(counters, start))
         assert np.isfinite(loss), loss
         assert launched == (per_step, per_step, gathers, 0), launched
         steps.append(dict(step=i, seconds=seconds, loss=loss, fwd_launches=launched[0],
                           bwd_launches=launched[1], gather_launches=launched[2]))
         parts = ", ".join(f"{k} {v.item():.4f}" for k, v in out.items() if k != "loss")
-        print(f"train_act3d step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f} ({parts}); "
+        print(f"{tag} step {i}: {seconds * 1e3:.1f} ms, loss {loss:.4f} ({parts}); "
               f"{launched[0]} fused_mha_fwd + {launched[1]} fused_mha_bwd + {launched[2]} "
-              f"scatter_rows_sorted launches | {card}", flush=True)
-    launches = tuple(fn.launches for fn in counters)
+              f"scatter_rows_sorted launches ({attr}) | {card}", flush=True)
+    launches = tuple(getattr(fn, attr) for fn in counters)
     peak = torch.cuda.max_memory_allocated()
-    changed, unchanged = 0, []
-    for n, p in model.named_parameters():
-        if "backbone" in n:
-            assert torch.equal(p, before[n]), n
-        elif torch.equal(p, before[n]):
-            unchanged.append(n)
-        else:
-            changed += 1
-    # only the biases of FPN levels the model does not read (zero gradient,
-    # no decay) may stay as they were
-    assert changed and all("feature_pyramid" in n and n.endswith("bias")
-                           for n in unchanged), unchanged
+    changed = check_trained(model, before)
+    grads = check_master_state(model, trainer.optimizer, loss_fn, batch, trainer.generators)
     warm = [st["seconds"] for st in steps[1:]]
-    print(f"train_act3d: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps "
+    print(f"{tag}: warm step {np.mean(warm) * 1e3:.1f} ms (mean of steps "
           f"1-{TRAIN_STEPS - 1}; min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f}); "
           f"peak memory {peak / 2**20:.1f} MiB, resident before the first step "
           f"{resident / 2**20:.1f} MiB; {changed} trainable tensors changed, backbone "
-          f"unchanged | {card}", flush=True)
+          f"unchanged; params, AdamW moments and {grads} gradients float32 | {card}",
+          flush=True)
 
+    # evaluation stays float32 (the float32 entries), as JAX's metrics_fn
     eval_batch = {k: v[:KEYPOSE_EVAL_B] for k, v in batch.items()}
-    start = [fn.launches for fn in counters]
+    start = [fn.launches for fn in counters] + [fn.launches_bf16 for fn in counters]
     t0 = time.perf_counter()
     metrics = trainer.evaluate([eval_batch])
     seconds = time.perf_counter() - t0
-    launched = tuple(fn.launches - n for fn, n in zip(counters, start))
-    assert launched == (per_step, 0, 0, 0), launched
+    launched = tuple(n - m for n, m in zip(
+        [fn.launches for fn in counters] + [fn.launches_bf16 for fn in counters], start))
+    assert launched == (per_step, 0, 0, 0, 0, 0, 0, 0), launched
     assert all(np.isfinite(v) for v in metrics.values()), metrics
-    print(f"train_act3d evaluate: batch {KEYPOSE_EVAL_B}, "
-          f"{ACT3D_CFG['num_ghost_points_val']} ghost points, {seconds * 1e3:.1f} ms; "
+    print(f"{tag} evaluate: batch {KEYPOSE_EVAL_B}, "
+          f"{ACT3D_CFG['num_ghost_points_val']} ghost points, float32, {seconds * 1e3:.1f} ms; "
           + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
     return launches, steps, dict(peak_memory_bytes=peak, resident_memory_bytes=resident,
                                  eval_seconds=seconds, eval_metrics=metrics)
@@ -1182,7 +1520,7 @@ def recorded_steps():
         return batch
 
     def recorded(self, batch):
-        start = [fn.launches for fn in KERNELS.values()]
+        start = launch_counts()
         number = self.step_count
         t0 = time.perf_counter()
         out = step(self, batch)
@@ -1191,7 +1529,7 @@ def recorded_steps():
         records.append(dict(
             step=number, loss=loss, step_s=time.perf_counter() - t0,
             data_wait_s=waits[-1] if waits else 0.0,
-            launches=tuple(fn.launches - n for fn, n in zip(KERNELS.values(), start))))
+            launches=tuple(a - b for a, b in zip(launch_counts(), start))))
         return out
 
     Trainer.step, DeviceFeeder.__next__ = recorded, timed_next
@@ -1238,7 +1576,7 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
         for st in steps:
             print(f"{name} step {st['step']}: {st['step_s'] * 1e3:.1f} ms, waited "
                   f"{st['data_wait_s'] * 1e3:.1f} ms in next(feeder), loss {st['loss']:.4f}; "
-                  f"launches {dict(zip(KERNELS, st['launches']))} | {card}", flush=True)
+                  f"launches {nonzero(st['launches'])} | {card}", flush=True)
         assert [st["step"] for st in steps] == list(range(iters)), steps
         assert all(np.isfinite(st["loss"]) for st in steps), steps
         assert [st["launches"] for st in steps] == [per_step] * iters, steps
@@ -1282,13 +1620,13 @@ def recorded_keysteps():
     records, predict = [], Actioner.predict
 
     def recorded(self, *args, **kwargs):
-        start = [fn.launches for fn in KERNELS.values()]
+        start = launch_counts()
         t0 = time.perf_counter()
         out = predict(self, *args, timed=True, **kwargs)
         records.append(dict(
             seconds=time.perf_counter() - t0, act3d_s=self.last_phase_seconds["act3d"],
             sampler_s=self.last_phase_seconds["sampler"],
-            launches=tuple(fn.launches - n for fn, n in zip(KERNELS.values(), start))))
+            launches=tuple(a - b for a, b in zip(launch_counts(), start))))
         return out
 
     Actioner.predict = recorded
@@ -1309,8 +1647,9 @@ def phase_cli_eval(card):
     success count (demos scored x num_demos / (num_demos - missing)), so a
     full score with 2 demos run reads 2.0."""
     expected = expected_launches_per_keystep()
-    # launches per keystep in KERNELS order: fused_mha_fwd alone
-    full, act3d_only = (expected,) + (0,) * 5, (act3d_sites_per_forward(),) + (0,) * 5
+    # launches per keystep: fused_mha_fwd alone
+    full = per_unit_launches(fused_mha_fwd=expected)
+    act3d_only = per_unit_launches(fused_mha_fwd=act3d_sites_per_forward())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_eval_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -1350,14 +1689,14 @@ def phase_cli_eval(card):
         for i, k in enumerate(keysteps):
             print(f"cli_eval keystep {i}: {k['seconds'] * 1e3:.1f} ms (act3d "
                   f"{k['act3d_s'] * 1e3:.1f} ms, sampler {k['sampler_s'] * 1e3:.1f} ms); "
-                  f"launches {dict(zip(KERNELS, k['launches']))} | {card}", flush=True)
+                  f"launches {nonzero(k['launches'])} | {card}", flush=True)
         assert all(k["launches"] == full for k in keysteps), keysteps
         offline_rates, offline_keysteps, offline_s = run(
             "eval_offline.json", "--offline", "1", "--predict_traj", "0")
         for i, k in enumerate(offline_keysteps):
             print(f"cli_eval offline keystep {i}: {k['seconds'] * 1e3:.1f} ms (act3d "
                   f"{k['act3d_s'] * 1e3:.1f} ms); launches "
-                  f"{dict(zip(KERNELS, k['launches']))} | {card}", flush=True)
+                  f"{nonzero(k['launches'])} | {card}", flush=True)
         assert all(k["launches"] == act3d_only for k in offline_keysteps), offline_keysteps
         assert offline_rates["mean"] == EVAL_CLI_DEMOS, offline_rates
     print(f"cli_eval: rates {rates} (chained, seeded random weights), offline {offline_rates}; "
@@ -1745,10 +2084,10 @@ def main() -> int:
     def drive(phase, fn, *args):
         """Run one main-path phase with every launch count set to 0 just
         before it, and read the counts just after."""
-        for kernel in KERNELS.values():
-            kernel.launches = 0
+        for wrapper, attr in KERNELS.values():
+            setattr(wrapper, attr, 0)
         out = fn(*args)
-        main_path[phase] = {name: kernel.launches for name, kernel in KERNELS.items()}
+        main_path[phase] = dict(zip(KERNELS, launch_counts()))
         return out
 
     rows = phase_kernels(dev, card, sm_mhz)
@@ -1763,12 +2102,17 @@ def main() -> int:
     gather_rows = phase_gather_kernels(dev, card)
     core_rows = phase_attention_core(dev, card, sm_mhz)
     chunked_row = phase_chunked(dev, card)
+    bf16_rows = phase_kernels_bf16(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
+    phase_small_bf16(dev)
     (train_fwd, train_bwd), train_steps, train_memory = drive("train", phase_train, dev, card)
     kp_launches, kp_steps, kp_memory = drive("train_act3d", phase_train_act3d, dev, card)
-    per_step_kp = (18, 18, KEYPOSE_LEVELS - 1, 0, 0, 0)  # in KERNELS order
-    per_step_traj = (19, 19, 0, 0, 0, 0)
+    bf16_train = drive("train_bf16", phase_train, dev, card, torch.bfloat16)
+    bf16_act3d = drive("train_act3d_bf16", phase_train_act3d, dev, card, torch.bfloat16)
+    per_step_kp = per_unit_launches(fused_mha_fwd=18, fused_mha_bwd=18,
+                                    scatter_rows_sorted=KEYPOSE_LEVELS - 1)
+    per_step_traj = per_unit_launches(fused_mha_fwd=19, fused_mha_bwd=19)
     cli_kp = drive("cli_keypose", phase_cli, dev, card, "cli_keypose", main_keypose.main,
                    KEYPOSE_CLI_FLAGS, 6, 3, per_step_kp, "mean/pos_l2_final")
     cli_traj = drive("cli_trajectory", phase_cli, dev, card, "cli_trajectory",
@@ -1779,15 +2123,20 @@ def main() -> int:
     workers = host_workers()
     print(f"host-path CLI phases: {workers} workers (os.cpu_count() {os.cpu_count()})",
           flush=True)
+    # the host-path CLI phases also train as --mixed_precision 1 does: bf16
+    # entries in every step (the evaluations stay float32)
+    per_step_kp_bf16 = per_unit_launches(fused_mha_fwd_bf16=18, fused_mha_bwd_bf16=18,
+                                         scatter_rows_sorted_bf16=KEYPOSE_LEVELS - 1)
+    per_step_traj_bf16 = per_unit_launches(fused_mha_fwd_bf16=19, fused_mha_bwd_bf16=19)
     cli_kp_hp = drive("cli_keypose_host_path", phase_cli, dev, card, "cli_keypose_host_path",
-                      main_keypose.main, KEYPOSE_CLI_FLAGS + keypose_host_path_flags(workers),
-                      HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS, per_step_kp,
-                      "mean/pos_l2_final")
+                      main_keypose.main, KEYPOSE_CLI_FLAGS + keypose_host_path_flags(workers)
+                      + BF16_CLI_FLAGS, HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS,
+                      per_step_kp_bf16, "mean/pos_l2_final")
     cli_traj_hp = drive("cli_trajectory_host_path", phase_cli, dev, card,
                         "cli_trajectory_host_path", main_trajectory.main,
-                        TRAJECTORY_CLI_FLAGS + trajectory_host_path_flags(workers),
-                        HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS, per_step_traj,
-                        "traj_action_mse")
+                        TRAJECTORY_CLI_FLAGS + trajectory_host_path_flags(workers)
+                        + BF16_CLI_FLAGS, HOST_PATH_CLI_ITERS, HOST_PATH_CLI_ITERS,
+                        per_step_traj_bf16, "traj_action_mse")
     for single, multi in ((cli_kp, cli_kp_hp), (cli_traj, cli_traj_hp)):
         print(f"feeder wait per step: one feeder thread "
               f"{single['data_wait_steady_ms']['before_eval']:.1f} ms (steps before the first "
@@ -1804,7 +2153,15 @@ def main() -> int:
     assert not left, left
     for phase, counts in main_path.items():
         print(f"main path {phase}: launches {counts}", flush=True)
-        assert counts["attention_core"] == counts["scatter_rows_chunked"] == 0, counts
+        assert all(counts[f"{name}{tag}"] == 0 for name in ("attention_core",
+                   "scatter_rows_chunked") for tag in ("", "_bf16")), counts
+        # a bf16 phase trains on the bf16 entries alone (its evaluations run the
+        # float32 forward); a float32 phase launches no bf16 entry
+        if phase in BF16_PHASES:
+            assert counts["fused_mha_bwd"] == counts["scatter_rows_sorted"] == 0, counts
+            assert counts["fused_mha_fwd_bf16"] and counts["fused_mha_bwd_bf16"], counts
+        else:
+            assert not any(n for name, n in counts.items() if name.endswith("_bf16")), counts
     launches = {name: sum(c[name] for c in main_path.values()) for name in KERNELS}
 
     def per_unit(shape_rows, key):
@@ -1908,6 +2265,45 @@ def main() -> int:
         "shapes": [chunked_row],
         "card": card,
     })
+    bf16_sources = {"fused_mha_fwd": ("csrc/fused_mha_fwd.cu", "attention.py:212"),
+                    "fused_mha_bwd": ("csrc/fused_mha_bwd.cu", "attention.py:289"),
+                    "attention_core": ("csrc/fused_mha_fwd.cu", "attention.py:823"),
+                    "scatter_rows_sorted": ("csrc/scatter_rows.cu", "gather.py:132"),
+                    "scatter_rows": ("csrc/scatter_rows.cu", "gather.py:71"),
+                    "scatter_rows_chunked": ("csrc/scatter_rows.cu", "gather.py:236")}
+    bf16_per = {
+        "fused_mha_fwd": "one ChainedDiffuser plus one Act3D training step in bf16: sum over "
+                         "their launches of the per-call device time at each shape",
+        "fused_mha_bwd": "the same; library_ms is SDPA's bf16 forward + backward minus its "
+                         "forward",
+        "attention_core": "no model path (as in JAX): the forwards of both training steps "
+                          "flattened to (B*H, L, 15) in bf16, summed over their per-step "
+                          "counts; library_ms is SDPA in bf16",
+        "scatter_rows_sorted": "one call at the Act3D fine-level shape (B=16, K=3072, C=60, "
+                               "P=49152) in bf16; 2 calls per Act3D training step",
+        "scatter_rows": "one call at the Act3D fine-level shape in bf16; no model path",
+        "scatter_rows_chunked": "one call at the Act3D fine-level shape in bf16 at JAX's "
+                                "p_tile=256, n_chunks=4; no model path"}
+    for base, (source, replaces) in bf16_sources.items():
+        name = f"{base}_bf16"
+        shape_rows = bf16_rows[name]
+        if len(shape_rows) == 1:
+            unit = {k: shape_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                  "ops_ms", "bytes_ms")}
+        else:
+            unit = {k: per_unit(shape_rows, (k, "per_step"))
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"act3d_tpu_torch/{source}",
+            "replaces": f"act3d_tpu/kernels/{replaces}", "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in shape_rows),
+            "kernel_vs_f32": max(r.get("kernel_vs_f32", 0.0) for r in shape_rows),
+            "plain_vs_f32": max(r.get("plain_vs_f32", 0.0) for r in shape_rows),
+            **unit, "bound_by": "operations" if unit["ops_ms"] >= unit["bytes_ms"] else "bytes",
+            "dtype": "bfloat16", "per": bf16_per[base], "shapes": shape_rows, "card": card,
+        })
+    kernels[6].update(train_bf16=dict(zip(("launches", "steps", "memory"), bf16_train)),
+                      train_act3d_bf16=dict(zip(("launches", "steps", "memory"), bf16_act3d)))
     for kernel in kernels:
         kernel["main_path_launches"] = {phase: c[kernel["name"]]
                                         for phase, c in main_path.items()}

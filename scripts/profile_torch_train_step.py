@@ -7,8 +7,10 @@ phases (seeded random weights, batch 16, 3 cameras at 256^2):
     query layers, dropout 0.1, trajectory length 50;
   * ``--model keypose`` (phase train_act3d): Act3D, emb 60, 1000 training
     ghost points over 3 levels, gt-biased fine sampling, the keypose loss;
-takes two warm-up Trainer steps, then one step under torch.profiler, and
-prints:
+in float32, or with ``--mixed_precision 1`` in bf16 as the CLIs' flag
+trains (``compute_dtype=torch.bfloat16``: bf16 copies of the params and
+inputs, the kernels' bf16 entries, float32 master state); takes two
+warm-up Trainer steps, then one step under torch.profiler, and prints:
   * the step's host-clock time, device busy time (the union of kernel
     intervals) and the device's idle share;
   * kernel time by name (top 15) and by kind (convolution, attention,
@@ -17,11 +19,12 @@ prints:
     row-scatter kernels);
   * peak device memory of the frozen visual trunk alone (no grad), of the
     loss forward, and of forward + backward + AdamW.
-The Chrome trace goes to <out>/<model>_train_step_trace.json.gz (default
-out dir: profiles/, listed in .gitignore).
+The Chrome trace goes to <out>/<model>[_bf16]_train_step_trace.json.gz
+(default out dir: profiles/, listed in .gitignore).
 
 Run from the repository root on the card:
-    python3 scripts/profile_torch_train_step.py [--model diffusion|keypose] [--out DIR]
+    python3 scripts/profile_torch_train_step.py [--model diffusion|keypose]
+        [--mixed_precision 0|1] [--out DIR]
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from profile_torch_keystep import _union_us  # noqa: E402
 
 from act3d_tpu_torch.train.engine import Trainer  # noqa: E402
 from act3d_tpu_torch.train.flagship import (  # noqa: E402
+    cast_params,
     diffusion_loss_fn,
     keypose_loss_fn,
     make_diffusion_model,
@@ -89,6 +93,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("diffusion", "keypose"), default="diffusion",
                         help="which flagship training step to profile")
+    parser.add_argument("--mixed_precision", type=int, default=0,
+                        help="1: the bf16 step of --mixed_precision 1")
     parser.add_argument("--out", default=str(REPO / "profiles"),
                         help="directory for the Chrome trace")
     args = parser.parse_args()
@@ -97,23 +103,33 @@ def main() -> int:
         return 1
     card = cs.nvidia_smi()
     print(card, flush=True)
+    dtype = torch.bfloat16 if args.mixed_precision else None
+    tag = f"{args.model}_bf16" if dtype else args.model
+
+    def run_trunk(visual, rgbs, pcds):
+        if dtype is None:
+            return visual(rgbs, pcds)
+        return torch.func.functional_call(visual, cast_params(visual, dtype),
+                                          (rgbs.to(dtype), pcds.to(dtype)))
+
     torch.manual_seed(cs.SEED)
     if args.model == "diffusion":
         model = make_diffusion_model(device="cuda")
         batch = synthetic_trajectory_batch(cs.TRAIN_B, cs.NCAM, (256, 256), cs.TRAJ_LEN,
                                            seed=cs.SEED, device="cuda")
-        loss_fn = diffusion_loss_fn(model)
+        loss_fn = diffusion_loss_fn(model, dtype)
 
         def trunk():
-            model.prediction_head.visual(batch["rgbs"], model._normalize_pcd(batch["pcds"]))
+            run_trunk(model.prediction_head.visual, batch["rgbs"],
+                      model._normalize_pcd(batch["pcds"]))
     else:
         model = make_keypose_model(device="cuda")
         batch = synthetic_keypose_batch(cs.TRAIN_B, cs.NCAM, (256, 256), seed=cs.SEED,
                                         device="cuda")
-        loss_fn = keypose_loss_fn(model, KeyposeLossAndMetrics())
+        loss_fn = keypose_loss_fn(model, KeyposeLossAndMetrics(), dtype)
 
         def trunk():
-            model.visual(batch["rgbs"], batch["pcds"])
+            run_trunk(model.visual, batch["rgbs"], batch["pcds"])
     trainer = Trainer(loss_fn, model, seed=cs.SEED)
     for _ in range(2):
         trainer.step(batch)["loss"].item()
@@ -144,6 +160,8 @@ def main() -> int:
         by_name[e.name][0] += 1
         by_name[e.name][1] += end - start
     busy_us = _union_us(intervals)
+    casts = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::_to_copy"]
 
     def kernel_ms(tag):
         return sum(t for name, (_, t) in by_name.items() if tag in name) / 1e3
@@ -154,11 +172,16 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     summary = {
         "model": args.model,
+        "mixed_precision": args.mixed_precision,
         "card": card,
         "step_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "device_kernel_events": sum(c for c, _ in by_name.values()),
+        # dtype casts issued by the host (forward; their backward copies run
+        # as ToCopyBackward): the params' bf16 copies under --mixed_precision 1
+        "host_casts": len(casts),
+        "host_cast_ms": sum(e.cpu_time_total for e in casts) / 1e3,
         "fused_mha_fwd_ms": kernel_ms("fused_mha_fwd"),
         "fused_mha_bwd_ms": kernel_ms("mha_bwd"),
         "scatter_rows_ms": kernel_ms("scatter_rows"),
@@ -172,7 +195,7 @@ def main() -> int:
         print(f"{row['ms']:9.3f} ms {row['count']:6d}x  {row['name']}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trace = out / f"{args.model}_train_step_trace.json"
+    trace = out / f"{tag}_train_step_trace.json"
     prof.export_chrome_trace(str(trace))
     with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
         shutil.copyfileobj(src, dst)

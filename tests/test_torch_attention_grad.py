@@ -391,3 +391,122 @@ def test_cuda_backward_any_plan(key_warps, rows_per_split, rate):
                    key_tiles * nsplit * heads * b, dq, dkv,
                    1 + (key_tiles > 1) + (nsplit > 1))
     _check_grads(q, k, v, g, heads, mask, rate, 3 if rate else None, plan)
+
+
+def _bf16_case(seed, b, l, s, e, heads, mask_kind):
+    """A card case in bf16 and its float32 upcast (the same values)."""
+    (q, k, v, g), mask = _cuda_case(seed, b, l, s, e, heads, mask_kind)
+    low = [x.to(torch.bfloat16) for x in (q, k, v, g)]
+    return low, [x.float() for x in low], mask
+
+
+def _check_bf16(low, f32, heads, mask, rate, seed, plan=None):
+    """The bf16 kernels against the bf16 plain versions and the float32
+    plain version on the same bf16-rounded inputs: each kernel result
+    within bf16_errors' bound (the gradients' with the float32-noise floor
+    BWD_FLOOR, for S = 1 without dropout, where dq and dk cancel to zero),
+    the stats at the float32 tolerance, a
+    repeat bit-identical, one bf16 launch of each wrapper and no float32
+    one."""
+    from act3d_tpu_torch.kernels import BWD_FLOOR, bf16_errors
+
+    q, k, v, g = low
+    counts = (fused_mha_forward.launches, fused_mha_backward.launches,
+              fused_mha_forward.launches_bf16, fused_mha_backward.launches_bf16)
+    out, stats = fused_mha_forward(q, k, v, heads, mask, True, rate, seed)
+    runs = [attention._launch_bwd(q, k, v, out, stats, g, heads, mask, rate, seed, plan)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fused_mha_forward.launches, fused_mha_backward.launches,
+            fused_mha_forward.launches_bf16, fused_mha_backward.launches_bf16) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 2)
+    assert out.dtype == torch.bfloat16 and stats.dtype == torch.float32
+    plain_out, plain_stats = fused_mha_forward_reference(q, k, v, heads, mask, rate, seed)
+    ref_out, _ = fused_mha_forward_reference(*f32[:3], heads, mask, rate, seed)
+    fwd = bf16_errors(out, plain_out, ref_out)
+    assert fwd["ok"], fwd
+    torch.testing.assert_close(stats, plain_stats, atol=2e-5, rtol=1e-4)
+    plain = fused_mha_backward_reference(q, k, v, out, stats, g, heads, mask, rate, seed)
+    ref = fused_mha_backward_reference(*f32[:3], out.float(), stats, f32[3], heads, mask,
+                                       rate, seed)
+    for got, again, p, r in zip(*runs, plain, ref):
+        assert got.dtype == torch.bfloat16
+        errs = bf16_errors(got, p, r, BWD_FLOOR)
+        assert errs["ok"], errs
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mask_kind", [None, "padded", "full_row"])
+@pytest.mark.parametrize("b,l,s,e,heads", [(4, 3072, 53, 120, 8), (4, 50, 3074, 120, 8),
+                                           (3, 50, 50, 120, 8), (4, 333, 3126, 60, 4),
+                                           (4, 1, 3126, 60, 4), (2, 37, 29, 60, 4)])
+def test_cuda_bf16_kernels_within_the_bf16_bound(b, l, s, e, heads, mask_kind, rate):
+    """On the card, at bf16 (--mixed_precision 1): forward and backward
+    against the bf16 plain versions, which round where the TPU kernels
+    round, and the float32 plain version, at both training steps' sites."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    low, f32, mask = _bf16_case(9, b, l, s, e, heads, mask_kind)
+    _check_bf16(low, f32, heads, mask, rate, 1234 if rate else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mask_kind", [None, "full_row"])
+@pytest.mark.parametrize("l", [1, 17, 65])
+@pytest.mark.parametrize("s", [1, 16, 17, 65, 129])
+@pytest.mark.parametrize("e,heads", [(16, 2), (60, 4), (32, 2), (64, 2), (128, 2)])
+def test_cuda_bf16_ragged_edges_and_head_dims(e, heads, s, l, mask_kind, rate):
+    """On the card, at bf16: L and S at the edges of the 16-row and 16-key
+    operands and the 32-key tile, head dims 8, 15, 16, 32 and 64 (padded to
+    16, 16, 16, 32, 64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    low, f32, mask = _bf16_case(10, 2, l, s, e, heads, mask_kind)
+    _check_bf16(low, f32, heads, mask, rate, 5 if rate else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("key_warps,rows_per_split", [(1, 300), (2, 64), (4, 128), (8, 70),
+                                                      (8, 1)])
+def test_cuda_bf16_backward_any_plan(key_warps, rows_per_split, rate):
+    """On the card, at bf16: any key tile and L split (float32 dq slabs,
+    dk/dv slabs, both, summed and rounded to bf16 once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, l, s, e, heads = 2, 300, 150, 60, 4
+    low, f32, mask = _bf16_case(11, b, l, s, e, heads, "padded")
+    key_tiles = -(-s // (16 * key_warps))
+    nsplit = -(-l // rows_per_split)
+    dq = key_tiles * b * l * e if key_tiles > 1 else 0
+    dkv = 2 * nsplit * b * s * e if nsplit > 1 else 0
+    plan = BwdPlan(key_warps, key_tiles, rows_per_split, nsplit,
+                   key_tiles * nsplit * heads * b, dq, dkv,
+                   1 + (key_tiles > 1) + (nsplit > 1))
+    _check_bf16(low, f32, heads, mask, rate, 3 if rate else None, plan)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_dropout_drops_what_float32_drops():
+    """For one seed the bf16 and float32 forward kernels drop the same
+    weights (the hash of absolute coordinates): with v the identity of
+    each head (S <= d), out is the kept weights, zero where dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, l, s, heads, d = 2, 40, 16, 2, 16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, l, heads * d, generator=gen, device=dev) * 0.25
+    k = torch.randn(b, s, heads * d, generator=gen, device=dev)
+    v = torch.eye(s, d, device=dev).repeat(b, 1, heads)
+    zeros = []
+    for dtype in (torch.float32, torch.bfloat16):
+        out = fused_mha_forward(q.to(dtype), k.to(dtype), v.to(dtype), heads, None,
+                                dropout_rate=0.3, dropout_seed=77)
+        zeros.append(out.reshape(b, l, heads, d)[..., :s].transpose(1, 2) == 0)
+    torch.cuda.synchronize()
+    keep = dropout_keep(77, b, heads, l, s, 0.3, dev)
+    assert torch.equal(zeros[0], ~keep) and torch.equal(zeros[1], ~keep)

@@ -285,3 +285,33 @@ def test_cuda_kernel_any_plan(warps, chunk, rate):
     torch.testing.assert_close(runs[0][0], want_out, atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(runs[0][1], want_stats, atol=2e-5, rtol=1e-4)
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,l,s,e,heads", [(16, 3073, 53, 60, 4), (16, 333, 3126, 60, 4),
+                                           (16, 1, 3126, 60, 4), (16, 3072, 53, 120, 8),
+                                           (16, 50, 3074, 120, 8), (16, 50, 50, 120, 8)])
+def test_cuda_bf16_kernel_within_the_bf16_bound(b, l, s, e, heads, masked):
+    """On the card, at bf16 (--mixed_precision 1) and the training steps'
+    shapes: the kernel against the bf16 plain version and the float32
+    plain version on the same bf16-rounded inputs (bf16_errors' bound),
+    the float32 stats at atol 2e-5 / rtol 1e-4; one bf16 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from act3d_tpu_torch.kernels import bf16_errors
+
+    q, k, v, mask = _inputs(4, b, l, s, e, heads, masked)
+    dev = torch.device("cuda")
+    low = [torch.as_tensor(x, device=dev).to(torch.bfloat16) for x in (q, k, v)]
+    mask_t = None if mask is None else torch.as_tensor(mask, device=dev)
+    before = fused_mha_forward.launches, fused_mha_forward.launches_bf16
+    out, stats = fused_mha_forward(*low, heads, mask_t, return_stats=True)
+    torch.cuda.synchronize()
+    assert (fused_mha_forward.launches, fused_mha_forward.launches_bf16) == (
+        before[0], before[1] + 1)
+    plain_out, plain_stats = fused_mha_forward_reference(*low, heads, mask_t)
+    ref_out, _ = fused_mha_forward_reference(*(x.float() for x in low), heads, mask_t)
+    errs = bf16_errors(out, plain_out, ref_out)
+    assert errs["ok"], errs
+    torch.testing.assert_close(stats, plain_stats, atol=2e-5, rtol=1e-4)

@@ -10,8 +10,9 @@ each host-path flag (``--num_workers 2``, ``--device_augment``,
 ``--compact_transfer``, ``--wire depth``, ``--instr_mode ids``,
 ``--use_tensorboard``) and the two combinations chip_smoke runs train to a
 checkpoint with the batches that flag ships; ``--device_augment 1 --wire
-depth`` raises ValueError, as in JAX; and ``NotImplementedError`` for each
-kind of flag the port does not have yet.  Without a card, the default
+depth`` raises ValueError, as in JAX; ``--mixed_precision 1`` trains in
+bf16 to float32 checkpoints; and ``NotImplementedError`` for each kind of
+flag the port does not have yet.  Without a card, the default
 device raises.  Nothing here imports JAX.
 """
 
@@ -196,11 +197,45 @@ def test_cli_device_augment_with_the_depth_wire_raises_as_jax(common):
     assert not (tmp / "logs" / "exp" / "augment_depth" / "last.pt").exists()
 
 
+@pytest.mark.parametrize("name", sorted(CLIS))
+def test_cli_trains_in_bf16_checkpoints_resumes_and_evaluates(common, steps_taken,
+                                                              monkeypatch, name):
+    """--mixed_precision 1 (JAX's bf16 compute, float32 master weights):
+    every training step runs the model on bf16 copies of the params, the
+    losses are finite float32, the checkpoints hold float32, a relaunch
+    resumes at step 2 and --eval_only evaluates (in float32)."""
+    from act3d_tpu_torch.train import flagship
+
+    tmp, args = common
+    main, widths = CLIS[name]
+    argv = args + widths + ["--run_log_dir", f"{name}_bf16", "--mixed_precision", "1"]
+    log_dir = tmp / "logs" / "exp" / f"{name}_bf16"
+    casts = []
+    cast_params = flagship.cast_params
+    monkeypatch.setattr(flagship, "cast_params",
+                        lambda model, dtype: casts.append(dtype) or cast_params(model, dtype))
+
+    out = main.main(argv + ["--train_iters", "2"])
+    assert [s for s, _ in steps_taken] == [0, 1] and casts == [torch.bfloat16] * 2
+    assert all(math.isfinite(loss) for _, loss in steps_taken)
+    (evaluation,) = out["evals"]
+    key = "mean/pos_l2_final" if name == "keypose" else "traj_action_mse"
+    assert math.isfinite(evaluation["val"][key]), evaluation
+    assert json.loads((log_dir / "hparams.json").read_text())["mixed_precision"] == 1
+    last = torch.load(log_dir / "last.pt", weights_only=True)
+    assert last["step"] == 2 and all(
+        v.dtype == torch.float32 for v in last["model"].values() if v.is_floating_point())
+
+    out = main.main(argv + ["--train_iters", "3"])
+    assert [s for s, _ in steps_taken[2:]] == [2] and len(casts) == 3 and not out["evals"]
+    metrics = main.main(argv + ["--train_iters", "3", "--eval_only", "1"])
+    assert metrics and all(math.isfinite(v) for v in metrics.values()) and len(casts) == 3
+
+
 # one flag of each kind the port rejects, with the CLI it is given to
 REJECTED = [
     ("keypose", ["--num_devices", "2"], "num_devices"),
     ("keypose", ["--fsdp", "2"], "fsdp"),
-    ("trajectory", ["--mixed_precision", "1"], "mixed_precision"),
     ("trajectory", ["--backbone", "resnet"], "backbone"),
     ("keypose", ["--rotation_parametrization", "6D"], "rotation_parametrization"),
     ("keypose", ["--weight_tying", "0"], "weight_tying"),

@@ -160,7 +160,8 @@ def test_chunked_grid_follows_p_only(monkeypatch):
     launched = []
     monkeypatch.setattr(gather, "_check", lambda *a: None)
     monkeypatch.setattr(gather, "_launch", lambda g, idx, p, entry: launched.append(entry))
-    on_card = types.SimpleNamespace(device=types.SimpleNamespace(type="cuda"))
+    on_card = types.SimpleNamespace(device=types.SimpleNamespace(type="cuda"),
+                                    dtype=torch.float32)
     for p_tile, n_chunks in ((256, 4), (1, 64), (57344, 1)):
         before = scatter_rows_chunked.launches, scatter_rows_sorted.launches
         scatter_rows_chunked(on_card, on_card, 49152, p_tile, n_chunks)
@@ -278,3 +279,50 @@ def test_cuda_chunked_kernel_any_tiling(n_chunks, p_tile, layout):
         torch.cuda.synchronize()
         assert torch.equal(got, scatter_rows_reference(g, idx, p)), (b, k, p)
         assert torch.equal(got, scatter_rows_chunked(g, idx, p, p_tile, n_chunks))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["uniform", "clustered", "edges"])
+@pytest.mark.parametrize("b,p,k,c", [(16, 49152, 3072, 60), (2, 1000, 300, 7),
+                                     (3, 2048, 256, 12), (2, 1000, 300, 8)])
+def test_cuda_bf16_kernels_match_plain_version(layout, b, p, k, c):
+    """On the card, at bf16 (--mixed_precision 1): the sorted, unsorted and
+    chunked entries equal the plain version bit for bit, with 8-byte
+    (C = 60, 12), 2-byte (C = 7) and 16-byte (C = 8) accesses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, idx = _cuda_case(layout, b, p, k, c)
+    g = g.to(torch.bfloat16)
+    want = scatter_rows_reference(g, idx, p)
+    counts = [(fn.launches, fn.launches_bf16)
+              for fn in (scatter_rows_sorted, scatter_rows, scatter_rows_chunked)]
+    got_sorted = scatter_rows_sorted(g, idx, p)
+    perm = torch.randperm(k, device=g.device)
+    got_any = scatter_rows(g[:, perm], idx[:, perm].contiguous(), p)
+    got_chunked = scatter_rows_chunked(g, idx, p)
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.launches_bf16)
+            for fn in (scatter_rows_sorted, scatter_rows, scatter_rows_chunked)] == [
+        (n, n_bf16 + 1) for n, n_bf16 in counts]
+    for got in (got_sorted, got_any, got_chunked):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_kernels_take_strided_rows():
+    """bf16 cotangents read in place at every access width the alignment
+    allows: 8 bytes (C = 60 rows), 2 bytes (an offset of one element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, idx = _cuda_case("uniform", 4, 8192, 1024, 60)
+    g = g.to(torch.bfloat16)
+    want = scatter_rows_reference(g, idx, 8192)
+    wide = torch.cat([g, g[:, :1]], dim=1)
+    assert gather.access_bytes(wide[:, :1024]) == 8 and gather.access_bytes(wide[:, 1:]) == 8
+    assert torch.equal(scatter_rows_sorted(wide[:, :1024], idx, 8192), want)
+    shifted = torch.empty(4 * 1024 * 60 + 1, dtype=torch.bfloat16,
+                          device=g.device)[1:].view(4, 1024, 60)
+    shifted.copy_(g)
+    assert gather.access_bytes(shifted) == 2
+    assert torch.equal(scatter_rows_sorted(shifted, idx, 8192), want)
+    assert torch.equal(scatter_rows(shifted, idx, 8192), want)

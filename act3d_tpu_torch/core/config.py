@@ -5,10 +5,25 @@ A copy of ``act3d_tpu/core/config.py`` with the same flags and defaults
 main_trajectory.py:25-79), plus ``device`` ("cuda" unless the caller asks
 for "cpu").  A flag whose value asks for what the port does not have yet
 raises ``NotImplementedError`` naming the ROADMAP item, when the config is
-built.  Two TPU knobs change how JAX computes and not what: ``fast_prng``
-(the TPU's rbg PRNG) and ``flat_optimizer`` (flattened AdamW groups); they
-are accepted and ignored.  ``num_devices`` -1 means "all", which is one
-card here.
+built:
+
+  ==============================================  ===========================
+  flag value                                      ROADMAP Queue A item
+  ==============================================  ===========================
+  ``--backbone`` other than ``clip``              TorchResNet50
+  ``--rotation_parametrization`` (keypose) other  Act3D options
+  than ``quat_from_query``, ``--weight_tying 0``
+  / ``--gp_emb_tying 0``, ``--approx_topk 1``
+  ``--rotation_parametrization`` (trajectory)     ChainedDiffuser options
+  other than ``6D``, ``--feat_scales_to_use`` /
+  ``--attn_rounds`` other than 1
+  ==============================================  ===========================
+
+Two TPU knobs change how JAX computes and not what: ``fast_prng`` (the
+TPU's rbg PRNG) and ``flat_optimizer`` (flattened AdamW groups); they are
+accepted and ignored.  ``num_devices`` -1 means the launched world size
+(``torchrun --nproc_per_node``), 1 without a launcher; ``fsdp`` F > 1
+shards over a ``(num_devices / F, F)`` mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -66,11 +81,10 @@ class CommonConfig:
     # traj_action_mse for trajectory (main_trajectory.py:274).
     best_checkpoint_metric: str = "default"
 
-    # Host path and deployment flags of the JAX package.  num_devices and
-    # fsdp raise at values other than these defaults (see _reject_unported);
-    # mixed_precision 1 trains in bf16 with float32 master weights
-    # (train/flagship.py).
-    num_devices: int = -1  # -1: all available (one card)
+    # Host path and deployment flags of the JAX package.  num_devices / fsdp
+    # build the mesh (parallel/mesh.py); mixed_precision 1 trains in bf16
+    # with float32 master weights (train/flagship.py).
+    num_devices: int = -1  # -1: the launched world size (1 without torchrun)
     fsdp: int = 1
     compact_transfer: int = 0  # u8 rgb / u16 pcd on the wire (data/compact.py)
     wire: str = "pcd"  # "depth": depth + camera model (data/depthwire.py)
@@ -164,8 +178,6 @@ def _reject_unported(cfg: CommonConfig) -> None:
     """Raise NotImplementedError for a flag value the port lacks, naming the
     ROADMAP Queue A item that ports it by its title."""
     rules = [
-        (cfg.num_devices > 1 or cfg.fsdp > 1, "--num_devices > 1 / --fsdp > 1",
-         'ROADMAP Queue A, item "parallel"'),
         (cfg.backbone != "clip", f"--backbone {cfg.backbone}",
          'ROADMAP Queue A, item "TorchResNet50"'),
         (cfg.device not in ("cuda", "cpu"), f"--device {cfg.device}", "cuda or cpu only"),

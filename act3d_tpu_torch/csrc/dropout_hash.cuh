@@ -15,6 +15,8 @@
 //   keep        = bits >= threshold,  threshold = min(floor(rate * 2^32),
 //                 2^32 - 1), computed on the host as _keep_threshold does.
 // (mix(0) = 0; the constant keeps an int31 seed of 0 off that fixed point.)
+// b is the row of the global batch: the kernels pass b0 + (local row),
+// with b0 the rows' offset under data parallelism.
 //
 // The row key is computed once per query row; each score then costs 11
 // integer instructions (one IMAD for col * golden, the xor, the 8 of mix

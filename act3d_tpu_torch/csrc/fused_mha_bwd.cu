@@ -8,7 +8,8 @@
 //   l at lane 2h+1, l summed before dropout); delta (B, L, H) float32 =
 //   rowsum(dO * O) per head, computed by the caller.  Heads are the lane
 //   slices [h*d, (h+1)*d) of E, read and written in place.  With
-//   p = exp(s - m) / l, keep from dropout_hash.cuh and kp = keep / (1-rate)
+//   p = exp(s - m) / l, keep from dropout_hash.cuh (keyed on the global
+//   batch row b0 + b, as in the forward) and kp = keep / (1-rate)
 //   (kp = 1 without dropout):
 //     dv_j = sum_i p_ij kp_ij dO_i
 //     ds_ij = p_ij (kp_ij dO_i . v_j - delta_i)
@@ -84,6 +85,7 @@ struct Dropout {
   uint32_t seed;
   uint32_t threshold;
   float inv_keep;
+  uint32_t b0;  // the rows' offset in the global batch (data parallelism)
 };
 
 __host__ __device__ constexpr int ds_stride(int key_block) { return key_block + 8; }
@@ -196,7 +198,7 @@ mha_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mv = stats[row * (2 * H) + 2 * h];
         rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
         dlv = delta[row * H + h];
-        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, b, h, i0 + r);
+        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, i0 + r);
       }
       m_s[r] = mv;
       r_s[r] = rv;
@@ -520,7 +522,7 @@ mha_bwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
         mv = stats[row * (2 * H) + 2 * h];
         rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
         dlv = delta[row * H + h];
-        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, b, h, i0 + r);
+        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, i0 + r);
       }
       m_s[r] = mv;
       r_s[r] = rv;
@@ -761,15 +763,15 @@ bool bad_args(int B, int L, int S, int H, int d, int key_warps, int rows_per_spl
 // splits.  `work` holds, in this order, key_tiles * B*L*E floats of dq
 // slabs when key_tiles > 1 and 2 * nsplit * B*S*E floats of dk, dv slabs
 // when nsplit > 1 (may be null when neither).  dropout != 0 selects the
-// dropout instantiations, with the keep threshold and 1/(1-rate) computed
-// on the host.  Returns cudaGetLastError() after the launches (0 =
+// dropout instantiations, with the keep threshold, 1/(1-rate) and the
+// batch offset b0 computed on the host.  Returns cudaGetLastError() after the launches (0 =
 // success).
 extern "C" int act3d_fused_mha_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* stats, const void* delta, const void* mask, void* dq,
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
     int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
-    unsigned int threshold, float inv_keep, void* stream) {
+    unsigned int threshold, float inv_keep, unsigned int b0, void* stream) {
   if (bad_args(B, L, S, H, d, key_warps, rows_per_split, nsplit, work)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -777,7 +779,7 @@ extern "C" int act3d_fused_mha_bwd_f32(
   if (smem_bytes(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, b0};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -820,7 +822,7 @@ extern "C" int act3d_fused_mha_bwd_bf16(
     const void* stats, const void* delta, const void* mask, void* dq,
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
     int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
-    unsigned int threshold, float inv_keep, void* stream) {
+    unsigned int threshold, float inv_keep, unsigned int b0, void* stream) {
   if (bad_args(B, L, S, H, d, key_warps, rows_per_split, nsplit, work)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -828,7 +830,7 @@ extern "C" int act3d_fused_mha_bwd_bf16(
   if (smem_bytes_bf16(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, b0};
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);

@@ -13,7 +13,10 @@
 //   Dropout (rate > 0): l is summed before dropout, so the stats are the
 //   same with and without it; only kept keys enter the p v sum, and the
 //   row is scaled by 1 / ((1 - rate) l) at the end.  The keep mask comes
-//   from dropout_hash.cuh, keyed on absolute (seed, b, h, row, col).
+//   from dropout_hash.cuh, keyed on absolute (seed, b0 + b, h, row, col):
+//   b0 is the rows' offset in the global batch under data parallelism, so
+//   each rank drops what a one-device run drops for its rows (0 on one
+//   device, where every mask is the one of earlier releases).
 //
 // It also replaces the single-head-layout TPU kernel
 // act3d_tpu/kernels/attention.py::_attention_core_fwd_impl (bodies
@@ -100,6 +103,7 @@ struct Dropout {
   uint32_t seed;
   uint32_t threshold;
   float inv_keep;
+  uint32_t b0;  // the rows' offset in the global batch (data parallelism)
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -170,8 +174,8 @@ mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t rk_a = 0u, rk_b = 0u;
   if (DROPOUT) {
-    rk_a = act3d_dropout_row_key(drop.seed, b, h, row_a);
-    rk_b = act3d_dropout_row_key(drop.seed, b, h, row_b);
+    rk_a = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_b);
   }
 
   const float* k_b = k + (size_t)b * S * E + h * d;
@@ -499,8 +503,8 @@ mha_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t rk_a = 0u, rk_b = 0u;
   if (DROPOUT) {
-    rk_a = act3d_dropout_row_key(drop.seed, b, h, row_a);
-    rk_b = act3d_dropout_row_key(drop.seed, b, h, row_b);
+    rk_a = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_b);
   }
 
   const uint16_t* k_b = k + (size_t)b * S * E + h * d;
@@ -712,8 +716,8 @@ bool bad_args(int B, int L, int S, int H, int d, int warps, int chunk, int nspli
 // keys (nsplit = ceil(S / chunk), no chunk empty).  With nsplit > 1,
 // `work` holds nsplit * B * L * (E + 2H) floats: the partial accumulators,
 // then the partial (m, l).  dropout != 0 selects the dropout instantiation
-// with the keep threshold and 1/(1-rate) computed on the host.  stats may
-// be null where dropout is 0 (the core): then no stats are written.
+// with the keep threshold, 1/(1-rate) and the batch offset b0 computed on
+// the host.  stats may be null where dropout is 0 (the core): then no stats are written.
 // Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* mask,
@@ -721,11 +725,11 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        int L, int S, int H, int d, int warps,
                                        int chunk, int nsplit, int dropout,
                                        unsigned int seed, unsigned int threshold,
-                                       float inv_keep, void* stream) {
+                                       float inv_keep, unsigned int b0, void* stream) {
   if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, b0};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -761,11 +765,11 @@ extern "C" int act3d_fused_mha_fwd_bf16(const void* q, const void* k,
                                         int L, int S, int H, int d, int warps,
                                         int chunk, int nsplit, int dropout,
                                         unsigned int seed, unsigned int threshold,
-                                        float inv_keep, void* stream) {
+                                        float inv_keep, unsigned int b0, void* stream) {
   if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop{seed, threshold, inv_keep};
+  const Dropout drop{seed, threshold, inv_keep, b0};
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);

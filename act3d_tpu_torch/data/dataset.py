@@ -84,6 +84,8 @@ class RLBenchDataset:
         wire: str = "pcd",
         instr_mode: str = "features",
         depth_tol: float = 1e-3,
+        rank: int = 0,
+        world: int = 1,
     ):
         """``training`` with ``augment_host`` turns on the host Resize /
         Rotate; ``augment_host=False`` leaves them to the training step
@@ -100,7 +102,14 @@ class RLBenchDataset:
 
         ``instr_mode="ids"`` ships a (B,) int32 row of
         ``self.instruction_bank`` instead of (B, 53, 512) features; the loss
-        functions take the bank as ``instr_bank``."""
+        functions take the bank as ``instr_bank``.
+
+        ``rank`` of ``world`` (data parallelism): :meth:`sample_batch`
+        draws a global batch and returns this rank's rows of it, bit for
+        bit the rows a ``world=1`` dataset of the same seed returns.  The
+        other ranks' rows are replayed (their draws made, in order, without
+        assembling their images)."""
+        self._rank, self._world = rank, world
         self._cameras = list(cameras)
         self._max_episode_length = max_episode_length
         self._num_iters = num_iters
@@ -282,12 +291,12 @@ class RLBenchDataset:
                 depth, cam_intr, cam_c2w = depth[:, index], cam_intr[:, index], cam_c2w[:, index]
         else:
             pcds = states[:, :, 1]
-        action = np.concatenate([episode[2][i] for i in frame_ids]).astype(np.float32)
+        pick, rot, aug, action, gripper, gripper_history, traj, traj_mask = self._frame_draws(
+            task, variation, episode, frame_ids, rgbs.shape[-2:])
 
         instr = instr_id = None
         if self._instructions:
             options = self._instructions[task][variation]
-            pick = int(self._rng.integers(len(options)))
             if self._instr_mode == "ids":
                 instr_id = np.full(len(rgbs), self._instr_rows[(task, variation)][0] + pick,
                                    np.int32)
@@ -299,43 +308,23 @@ class RLBenchDataset:
         else:
             instr = np.zeros((len(rgbs), 53, 512), np.float32)
 
-        gripper = np.concatenate([episode[4][i] for i in frame_ids]).astype(np.float32)
-        gripper_history = np.stack(
-            [np.concatenate([episode[4][max(0, i - 2)] for i in frame_ids]),
-             np.concatenate([episode[4][max(0, i - 1)] for i in frame_ids]),
-             gripper],
-            axis=1,
-        ).astype(np.float32)
-
-        traj = traj_mask = None
-        if self._return_low_lvl_trajectory:
-            items = [self._interpolate_traj(np.asarray(episode[5][i], np.float64))
-                     for i in frame_ids]
-            max_l = max(self._interpolation_length, max(len(t) for t in items))
-            traj = np.zeros((len(items), max_l, 8), np.float32)
-            traj_mask = np.ones((len(items), max_l), bool)
-            for i, item in enumerate(items):
-                traj[i, : len(item)] = item
-                traj_mask[i, : len(item)] = False
-
         aug_rows = aug_cols = None
-        if self._training and self._augment_host:  # rotation before resize, as in JAX
+        if aug is not None:  # rotation before resize, as in JAX
+            rows, cols = aug
             if depth_mode:
                 # the XYZ path's draws in its order: the rotation folds
                 # into the camera-to-world extrinsic, the resize ships as
                 # index maps gathered on the card (exact for NEAREST)
-                rot, gripper, action, traj = self._rotate.sample(gripper, action, traj)
                 if rot is not None:
                     cam_c2w = cam_c2w.copy()
                     cam_c2w[..., :3, :] = np.einsum("ij,tcjk->tcik", rot.astype(np.float32),
                                                     cam_c2w[..., :3, :])
-                rows, cols = self._resize.sample_index_maps(*rgbs.shape[-2:])
                 aug_rows = np.repeat(rows[None].astype(np.int32), len(rgbs), axis=0)
                 aug_cols = np.repeat(cols[None].astype(np.int32), len(rgbs), axis=0)
-            else:
-                pcds, gripper, action, traj = self._rotate(pcds, gripper, action, traj)
-                modals = self._resize(rgbs=rgbs, pcds=pcds)
-                rgbs, pcds = modals["rgbs"], modals["pcds"]
+            else:  # augment.Rotate and augment.Resize applied with these draws
+                if rot is not None:
+                    pcds = np.einsum("ij,tcjhw->tcihw", rot, pcds)
+                rgbs, pcds = (a[..., rows[:, None], cols[None, :]] for a in (rgbs, pcds))
 
         sample = {
             "task": [task for _ in frame_ids],
@@ -358,6 +347,54 @@ class RLBenchDataset:
             sample["trajectory"] = traj[..., : self._action_dim]
             sample["trajectory_mask"] = traj_mask
         return sample
+
+    def _frame_draws(self, task, variation, episode, frame_ids, hw):
+        """The pose arrays of ``frame_ids`` and every draw of
+        :meth:`_frames_to_sample`, in its order: the instruction pick, then
+        (host augmentation) the Rotate and the Resize draws.  Returns
+        (pick, rot, (rows, cols) or None, action, gripper, gripper_history,
+        traj, traj_mask), action, gripper and traj rotated."""
+        action = np.concatenate([episode[2][i] for i in frame_ids]).astype(np.float32)
+        pick = None
+        if self._instructions:
+            pick = int(self._rng.integers(len(self._instructions[task][variation])))
+        gripper = np.concatenate([episode[4][i] for i in frame_ids]).astype(np.float32)
+        gripper_history = np.stack(
+            [np.concatenate([episode[4][max(0, i - 2)] for i in frame_ids]),
+             np.concatenate([episode[4][max(0, i - 1)] for i in frame_ids]),
+             gripper],
+            axis=1,
+        ).astype(np.float32)
+
+        traj = traj_mask = None
+        if self._return_low_lvl_trajectory:
+            items = [self._interpolate_traj(np.asarray(episode[5][i], np.float64))
+                     for i in frame_ids]
+            max_l = max(self._interpolation_length, max(len(t) for t in items))
+            traj = np.zeros((len(items), max_l, 8), np.float32)
+            traj_mask = np.ones((len(items), max_l), bool)
+            for i, item in enumerate(items):
+                traj[i, : len(item)] = item
+                traj_mask[i, : len(item)] = False
+
+        rot = aug = None
+        if self._training and self._augment_host:
+            rot, gripper, action, traj = self._rotate.sample(gripper, action, traj)
+            aug = self._resize.sample_index_maps(*hw)
+        return pick, rot, aug, action, gripper, gripper_history, traj, traj_mask
+
+    def _replay_frame(self, episode_id: int):
+        """:meth:`get_frame`'s draws for a row another rank assembles: the
+        same calls on the generator, in the same order, without the images.
+        None where get_frame returns None."""
+        task, variation, episode, _ = self._load(episode_id)
+        if episode is None:
+            return None
+        n_frames = len(episode[0])
+        frame_ids = [episode[0][int(self._rng.integers(n_frames)) % n_frames]]
+        self._frame_draws(task, variation, episode, frame_ids,
+                          np.shape(episode[1][frame_ids[0]])[-2:])
+        return True
 
     def get_frame(self, episode_id: int, frame_index: Optional[int] = None):
         """One (episode, frame) sample, the fixed-shape training unit; a
@@ -389,16 +426,30 @@ class RLBenchDataset:
 
     def sample_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
         """Fixed-shape batch of ``batch_size`` random frames; ``task`` is a
-        list of names, every other key a numpy array.  Thread-safe: the
-        CLIs draw evaluation batches from the training set while the feeder
-        thread draws training batches (the order of the two threads' draws
-        is not fixed)."""
+        list of names, every other key a numpy array.  With ``world > 1``,
+        ``batch_size`` is the global batch and this rank's
+        ``batch_size / world`` rows come back.  Thread-safe: the CLIs draw
+        evaluation batches from the training set while the feeder thread
+        draws training batches (the order of the two threads' draws is not
+        fixed)."""
+        mine = range(batch_size)
+        if self._world > 1:
+            from ..parallel.mesh import local_batch_size
+
+            b = local_batch_size(batch_size, self._world)
+            mine = range(self._rank * b, (self._rank + 1) * b)
         samples = []
         with self._lock:
-            while len(samples) < batch_size:
-                s = self.get_frame(int(self._rng.integers(self._num_episodes)))
-                if s is not None:
-                    samples.append(s)
+            row = 0
+            while row < batch_size:
+                episode_id = int(self._rng.integers(self._num_episodes))
+                if row in mine:
+                    s = self.get_frame(episode_id)
+                    if s is not None:
+                        samples.append(s)
+                else:
+                    s = self._replay_frame(episode_id)
+                row += s is not None
         out: Dict[str, np.ndarray] = {}
         for key in samples[0]:
             if key == "task":

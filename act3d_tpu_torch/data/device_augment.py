@@ -15,8 +15,10 @@ same draws the result equals the host's:
     applied to the clouds and the xyzw poses; a sample whose every try
     lands out of bounds keeps its input.
 
-Draws come from a ``torch.Generator`` on the batch's device (the Trainer's
-``generators.device``), in a fixed order: yaws (B, num_tries) when the yaw
+Draws come from a ``torch.Generator`` on the batch's device, or from the
+Trainer's ``Generators`` (their device generator, drawn at the global
+batch and sliced to this rank's rows, ``nn.dropout.draw``), in a fixed
+order: yaws (B, num_tries) when the yaw
 range is not 0, then scales (B,) and crop uniforms (B, 2) when the rescale
 range is not (1, 1).  JAX's ``jax.random`` keys cannot be matched, so
 parity is held with injected draws (``resize_with_params``, ``yaws=``).
@@ -29,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..nn.dropout import draw
 from .depthwire import gather_hw
 
 __all__ = ["resize_with_params", "resize_sample", "yaw_rotate_batch", "make_device_augment"]
@@ -139,8 +142,7 @@ def yaw_rotate_batch(
     yaws (B, num_tries) uniform in [-range, range) unless injected."""
     b, dev = pcds.shape[0], pcds.device
     if yaws is None:
-        yaws = (torch.rand((b, num_tries), generator=generator, device=dev) * 2 - 1) \
-            * yaw_range_rad
+        yaws = (draw(generator, torch.rand, (b, num_tries), dev) * 2 - 1) * yaw_range_rad
     yaws = yaws.to(device=dev, dtype=pcds.dtype)
     c, s = torch.cos(yaws), torch.sin(yaws)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
@@ -176,14 +178,14 @@ def make_device_augment(
 ):
     """A ``(batch, generator) -> batch`` augmentation for the loss functions'
     ``augment=``; pair it with ``RLBenchDataset(augment_host=False)``.
-    ``generator`` lives on the batch's device (module docstring: the order
-    of its draws)."""
+    ``generator`` (a torch.Generator or ``Generators``) lives on the
+    batch's device (module docstring: the order of its draws)."""
     lo, hi = image_rescale
     yaw_rad = math.radians(yaw_range_deg)
     bounds = torch.as_tensor(gripper_loc_bounds if gripper_loc_bounds is not None
                              else [[-2.0, -2.0, -2.0], [2.0, 2.0, 2.0]], dtype=torch.float32)
 
-    def augment(batch: Dict[str, torch.Tensor], generator: torch.Generator):
+    def augment(batch: Dict[str, torch.Tensor], generator):
         batch = dict(batch)
         if yaw_rad > 0.0:
             poses = {k: batch[k] for k in pose_keys if k in batch}
@@ -192,8 +194,8 @@ def make_device_augment(
             batch.update(rotated)
         if (lo, hi) != (1.0, 1.0):
             b, dev = batch["rgbs"].shape[0], batch["rgbs"].device
-            scales = lo + (hi - lo) * torch.rand(b, generator=generator, device=dev)
-            crop_u = torch.rand((b, 2), generator=generator, device=dev)
+            scales = lo + (hi - lo) * draw(generator, torch.rand, (b,), dev)
+            crop_u = draw(generator, torch.rand, (b, 2), dev)
             resized = resize_sample({"rgbs": batch["rgbs"], "pcds": batch["pcds"]},
                                     scales, crop_u)
             batch["rgbs"], batch["pcds"] = resized["rgbs"], resized["pcds"]

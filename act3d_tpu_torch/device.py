@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -31,9 +33,11 @@ def resolve_device(device="cuda") -> torch.device:
 
     The default is the card.  Without one, asking for ``"cuda"`` raises
     instead of drifting to the CPU; the CPU is used only when the caller
-    names it.  A CUDA device gets the float32 policy of
-    :func:`pin_float32`; the CPU computes in float32 already, and its
-    flags are left alone.
+    names it.  Under a launcher (``torchrun`` sets ``LOCAL_RANK``) a bare
+    ``"cuda"`` is this rank's card, ``cuda:LOCAL_RANK`` (modulo the cards
+    present, so several ranks may share one), made the current device.
+    A CUDA device gets the float32 policy of :func:`pin_float32`; the CPU
+    computes in float32 already, and its flags are left alone.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -44,5 +48,8 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
+        if dev.index is None and "LOCAL_RANK" in os.environ:
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
         pin_float32()
     return dev

@@ -11,10 +11,13 @@ dropout) at lane 2h+1, and attention-weight dropout applied inside the
 kernels: keep = hash bits >= rate * 2^32, kept weights scaled by
 1/(1-rate).
 
-The keep mask is a pure function of (seed, b, h, row, col) in absolute
-coordinates (``csrc/dropout_hash.cuh``, mirrored by :func:`dropout_keep`),
-so the forward, the backward and the plain versions regenerate the same
-mask whatever their tiling.  The TPU kernel's own bits cannot be
+The keep mask is a pure function of (seed, b0 + b, h, row, col) in
+absolute coordinates (``csrc/dropout_hash.cuh``, mirrored by
+:func:`dropout_keep`), so the forward, the backward and the plain versions
+regenerate the same mask whatever their tiling.  ``dropout_b0`` is the
+rows' offset in the global batch: under data parallelism rank r passes
+r x (local batch), so its rows drop what a one-device run drops for them
+(0 on one device, the masks of earlier releases).  The TPU kernel's own bits cannot be
 reproduced; the contract is semantic.
 
 :func:`fused_mha_forward` and :func:`fused_mha_backward` send a CPU tensor
@@ -99,22 +102,25 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * 2.0**32), _M32)
 
 
-def dropout_bits(seed: int, b: int, h: int, l: int, s: int, device="cpu"):
-    """(B, H, L, S) int64 hash bits in [0, 2^32), as the kernels draw them."""
-    def idx(n, shape):
-        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+def dropout_bits(seed: int, b: int, h: int, l: int, s: int, device="cpu", b0: int = 0):
+    """(B, H, L, S) int64 hash bits in [0, 2^32), as the kernels draw them
+    for batch rows b0 .. b0 + B - 1."""
+    def idx(n, shape, start=0):
+        return torch.arange(start, start + n, dtype=torch.int64, device=device).reshape(shape)
 
     key = _mix32((seed & _M32) ^ _SEED_SALT)  # a Python int: no host-device copy
-    key = _mix32(key ^ idx(b, (b, 1, 1)))
+    key = _mix32(key ^ idx(b, (b, 1, 1), b0))
     key = _mix32(key ^ idx(h, (1, h, 1)))
     key = _mix32(key ^ idx(l, (1, 1, l)))  # row keys (B, H, L)
     return _mix32(key[..., None] ^ _mul32(idx(s, (s,)), _GOLDEN))
 
 
 def dropout_keep(seed: int, b: int, h: int, l: int, s: int, rate: float,
-                 device="cpu") -> torch.Tensor:
-    """(B, H, L, S) bool keep mask of the kernels' attention dropout."""
-    return dropout_bits(seed, b, h, l, s, device) >= keep_threshold(rate)
+                 device="cpu", b0: int = 0) -> torch.Tensor:
+    """(B, H, L, S) bool keep mask of the kernels' attention dropout, for
+    batch rows b0 .. b0 + B - 1: rows b0.. of the mask of a batch of
+    b0 + B."""
+    return dropout_bits(seed, b, h, l, s, device, b0) >= keep_threshold(rate)
 
 
 # ----------------------------------------------------------- plain versions
@@ -137,11 +143,11 @@ def _merge(x, dtype):
     return x.transpose(1, 2).reshape(b, n, h * d).to(dtype)
 
 
-def _keep_or_none(keep, seed, rate, b, h, l, s, device):
+def _keep_or_none(keep, seed, rate, b, h, l, s, device, b0):
     if rate <= 0.0:
         return None
     if keep is None:
-        keep = dropout_keep(seed, b, h, l, s, rate, device)
+        keep = dropout_keep(seed, b, h, l, s, rate, device, b0)
     return keep
 
 
@@ -154,7 +160,7 @@ def _scores(qh, kh, key_padding_mask):
 
 def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None,
                                 dropout_rate: float = 0.0, dropout_seed=None,
-                                keep=None):
+                                keep=None, dropout_b0: int = 0):
     """Plain PyTorch version of the forward kernel: returns (out, stats).
 
     ``keep`` (B, H, L, S) bool replaces the hash mask (tests feed another
@@ -167,7 +173,8 @@ def fused_mha_forward_reference(q, k, v, num_heads, key_padding_mask=None,
     m = scores.amax(dim=-1, keepdim=True)
     ex = torch.exp(scores - m)
     lsum = ex.sum(dim=-1, keepdim=True)  # before dropout
-    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device,
+                         dropout_b0)
     scale = 1.0 / lsum
     if keep is not None:
         ex = ex * keep
@@ -187,13 +194,14 @@ def _delta(out, grad_out, num_heads):
 
 def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
                                  key_padding_mask=None, dropout_rate: float = 0.0,
-                                 dropout_seed=None, keep=None):
+                                 dropout_seed=None, keep=None, dropout_b0: int = 0):
     """Plain PyTorch version of the backward kernel (the formula of the TPU
     kernel's ``_mha_bwd_body``): returns (dq, dk, dv).  bf16 inputs take
     :func:`_backward_reference_low`, which rounds where that body does."""
     if q.dtype != torch.float32:
         return _backward_reference_low(q, k, v, out, stats, grad_out, num_heads,
-                                       key_padding_mask, dropout_rate, dropout_seed, keep)
+                                       key_padding_mask, dropout_rate, dropout_seed, keep,
+                                       dropout_b0)
     b, l, _ = q.shape
     s = k.shape[1]
     qh, kh, vh, gh = (_split(x, num_heads) for x in (q, k, v, grad_out))
@@ -202,7 +210,8 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
     delta = _delta(out, grad_out, num_heads).transpose(1, 2)[..., None]  # (B, H, L, 1)
     p = torch.exp(_scores(qh, kh, key_padding_mask) - m) / lsum
     dp = gh @ vh.transpose(-1, -2)
-    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device,
+                         dropout_b0)
     pk = p
     if keep is not None:
         inv_keep = 1.0 / (1.0 - dropout_rate)
@@ -216,7 +225,7 @@ def fused_mha_backward_reference(q, k, v, out, stats, grad_out, num_heads,
 
 
 def _backward_reference_low(q, k, v, out, stats, grad_out, num_heads, key_padding_mask,
-                            dropout_rate, dropout_seed, keep):
+                            dropout_rate, dropout_seed, keep, dropout_b0):
     """The backward at a low-precision input dtype, in ``_mha_bwd_body``'s
     order: unnormalised ex = exp(s - m); dv = round(ex_kept)^T dof with
     dof = round(dO r / (1 - rate)); ds = round(ex (dp_kept - delta));
@@ -231,7 +240,8 @@ def _backward_reference_low(q, k, v, out, stats, grad_out, num_heads, key_paddin
     delta = _delta(out, grad_out, num_heads).transpose(1, 2)[..., None]  # (B, H, L, 1)
     ex = torch.exp(_scores(qh, kh, key_padding_mask) - m)
     dp = gh @ vh.transpose(-1, -2)
-    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device)
+    keep = _keep_or_none(keep, dropout_seed, dropout_rate, b, num_heads, l, s, q.device,
+                         dropout_b0)
     inv_keep = 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
     ex_kept = ex
     if keep is not None:
@@ -344,13 +354,14 @@ def bwd_plan(b: int, l: int, s: int, h: int, d: int,
 
 def _entry(source: str, name: str, n_pointers: int):
     """The C entry ``name`` of ``source``: pointers, nine ints, the dropout
-    seed, threshold and 1/(1-rate), then the stream."""
+    seed, threshold, 1/(1-rate) and batch offset b0, then the stream."""
     from . import _build
 
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
-                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -371,7 +382,7 @@ def _bwd_bf16_fn():
     return _entry(_BWD_SOURCE, "act3d_fused_mha_bwd_bf16", 11)
 
 
-def _check(q, k, v, num_heads, mask, rate, seed):
+def _check(q, k, v, num_heads, mask, rate, seed, b0=0):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (B, L, E), (B, S, E), (B, S, E)")
     b, _, e = q.shape
@@ -388,6 +399,8 @@ def _check(q, k, v, num_heads, mask, rate, seed):
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate > 0.0 and not isinstance(seed, int):
         raise ValueError("dropout needs an int dropout_seed")
+    if not 0 <= b0 <= _M32 - b:
+        raise ValueError(f"dropout_b0 {b0} outside [0, 2^32 - B]")
     devices = {q.device, k.device, v.device}
     if mask is not None:
         if mask.dtype != torch.bool or tuple(mask.shape) != (b, k.shape[1]):
@@ -419,10 +432,10 @@ def _check_cuda(mask, d, dtype, stats=None, **tensors):
         raise NotImplementedError(f"head dim {d} > {MAX_HEAD_DIM}")
 
 
-def _dropout_args(rate, seed):
+def _dropout_args(rate, seed, b0=0):
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
-    return 1, seed & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
+        return 0, 0, 0, 1.0, 0
+    return 1, seed & _M32, keep_threshold(rate), 1.0 / (1.0 - rate), b0
 
 
 def fused_mha_forward(
@@ -434,21 +447,24 @@ def fused_mha_forward(
     return_stats: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_b0: int = 0,
 ):
     """Multi-head softmax attention core on (B, L, E) tensors, no autograd.
 
     key_padding_mask: optional (B, S) bool, True = masked out.
     dropout_rate / dropout_seed: attention-weight dropout with the hash
-    keep mask of that int seed.
+    keep mask of that int seed; dropout_b0: the rows' offset in the global
+    batch.
     Returns out (B, L, E), or (out, stats) with ``return_stats``.
     """
-    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
+    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed, dropout_b0)
     if q.device.type == "cpu":
         out, stats = fused_mha_forward_reference(
-            q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
+            q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed,
+            dropout_b0=dropout_b0)
     else:
         out, stats = _launch_fwd(q, k, v, num_heads, key_padding_mask, dropout_rate,
-                                 dropout_seed)
+                                 dropout_seed, b0=dropout_b0)
     return (out, stats) if return_stats else out
 
 
@@ -462,7 +478,7 @@ def _workspace(floats, device):
 
 
 def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None,
-             with_stats: bool = True):
+             with_stats: bool = True, b0: int = 0):
     """One call of the forward kernel, counted by its caller: (out, stats),
     stats None (and never written) without ``with_stats``."""
     b, l, e = q.shape
@@ -483,33 +499,35 @@ def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = Non
             out.data_ptr(), None if stats is None else stats.data_ptr(),
             None if work is None else work.data_ptr(),
             b, l, s, num_heads, d, plan.warps, plan.chunk, plan.nsplit,
-            *_dropout_args(rate, seed), stream,
+            *_dropout_args(rate, seed, b0), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_fwd launch failed: CUDA error {rc}")
     return out, stats
 
 
-def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None):
+def _launch_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = None, *,
+                b0: int = 0):
     """One forward kernel call; ``plan`` overrides :func:`fwd_plan` (the
     plan A/B script uses it)."""
-    out, stats = _run_fwd(q, k, v, num_heads, mask, rate, seed, plan)
+    out, stats = _run_fwd(q, k, v, num_heads, mask, rate, seed, plan, b0=b0)
     count_launch(fused_mha_forward, q.dtype)
     return out, stats
 
 
 def fused_mha_backward(q, k, v, out, stats, grad_out, num_heads,
                        key_padding_mask=None, dropout_rate: float = 0.0,
-                       dropout_seed: Optional[int] = None):
+                       dropout_seed: Optional[int] = None, dropout_b0: int = 0):
     """Gradients (dq, dk, dv) of the attention core from the forward's out
-    and stats; the same dropout_rate / dropout_seed as the forward."""
-    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed)
+    and stats; the same dropout_rate / dropout_seed / dropout_b0 as the
+    forward."""
+    _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed, dropout_b0)
     if q.device.type == "cpu":
         return fused_mha_backward_reference(
             q, k, v, out, stats, grad_out, num_heads, key_padding_mask, dropout_rate,
-            dropout_seed)
+            dropout_seed, dropout_b0=dropout_b0)
     return _launch_bwd(q, k, v, out, stats, grad_out, num_heads, key_padding_mask,
-                       dropout_rate, dropout_seed)
+                       dropout_rate, dropout_seed, b0=dropout_b0)
 
 
 fused_mha_backward.launches = 0  # float32 kernel launches since the last reset
@@ -517,7 +535,7 @@ fused_mha_backward.launches_bf16 = 0  # bf16 kernel launches since the last rese
 
 
 def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
-                plan: Optional[BwdPlan] = None):
+                plan: Optional[BwdPlan] = None, *, b0: int = 0):
     """One backward kernel call; ``plan`` overrides :func:`bwd_plan`."""
     b, l, e = q.shape
     s = k.shape[1]
@@ -539,7 +557,7 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if work is None else work.data_ptr(),
             b, l, s, num_heads, d, plan.key_warps, plan.rows_per_split, plan.nsplit,
-            *_dropout_args(rate, seed), stream,
+            *_dropout_args(rate, seed, b0), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_bwd launch failed: CUDA error {rc}")
@@ -645,17 +663,19 @@ class FusedMHA(torch.autograd.Function):
     """The attention core under autograd: :func:`fused_mha_forward` forward,
     :func:`fused_mha_backward` backward (kernels on the card, plain versions
     on the CPU).  apply(q, k, v, num_heads, key_padding_mask, dropout_rate,
-    dropout_seed) -> out."""
+    dropout_seed[, dropout_b0]) -> out."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed):
+    def forward(ctx, q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed,
+                dropout_b0=0):
         out, stats = fused_mha_forward(q, k, v, num_heads, key_padding_mask,
                                        return_stats=True, dropout_rate=dropout_rate,
-                                       dropout_seed=dropout_seed)
+                                       dropout_seed=dropout_seed, dropout_b0=dropout_b0)
         ctx.save_for_backward(q, k, v, out, stats, key_padding_mask)
         ctx.num_heads = num_heads
         ctx.dropout_rate = dropout_rate
         ctx.dropout_seed = dropout_seed
+        ctx.dropout_b0 = dropout_b0
         return out
 
     @staticmethod
@@ -663,5 +683,6 @@ class FusedMHA(torch.autograd.Function):
         q, k, v, out, stats, mask = ctx.saved_tensors
         dq, dk, dv = fused_mha_backward(
             q, k, v, out, stats, grad_out.contiguous(), ctx.num_heads, mask,
-            ctx.dropout_rate, ctx.dropout_seed)
-        return dq, dk, dv, None, None, None, None
+            ctx.dropout_rate, ctx.dropout_seed, ctx.dropout_b0)
+        # one gradient per input; apply() may have been given 7 or 8
+        return dq, dk, dv, None, None, None, None, None

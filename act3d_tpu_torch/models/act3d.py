@@ -21,19 +21,21 @@ heads.  JAX's ``train_mode`` is the module's training flag: it picks
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..nn.dropout import Generators, draw
 from ..nn.encoder import VisualEncoder
 from ..nn.layers import RelativeCrossAttentionModule
 from ..ops import rotations as R
 from ..ops.geometry import gather_tokens, topk_nearest_context
 from ..ops.rotary import rotary_pe_3d
-from ..ops.sampling import ghost_point_bounds, sample_uniform_ball, sample_uniform_cube
+from ..ops.sampling import (OVERSAMPLE, ghost_point_bounds, sample_uniform_ball,
+                            sample_uniform_cube)
 
 _BALL_DIAMETER_DIVISORS = [None, 1.0, 4.0, 16.0]
 _QUAT_DIM = 4
@@ -104,15 +106,16 @@ class Act3D(nn.Module):
         instruction: Optional[torch.Tensor],  # (B, 53, 512)
         curr_gripper: torch.Tensor,  # (B, 8)
         *,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[Union[Generators, torch.Generator]] = None,
         gt_action: Optional[torch.Tensor] = None,  # (B, 8): centres the fine balls
         ghost_points_override: Optional[Sequence[torch.Tensor]] = None,
         ghost_uniforms: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, object]:
-        """Ghost points are drawn from ``generator``, or from the uniforms
-        the samplers would draw (``ghost_uniforms``: (B, N, 3) at level 0,
-        (B, 4N, 3) above), unless ``ghost_points_override`` gives each
-        level's (B, N, 3) points."""
+        """Ghost points are drawn from ``generator`` (a torch.Generator, or
+        :class:`Generators`, which draw at the global batch, nn/dropout.py),
+        or from the uniforms the samplers would draw (``ghost_uniforms``:
+        (B, N, 3) at level 0, (B, 4N, 3) above), unless
+        ``ghost_points_override`` gives each level's (B, N, 3) points."""
         dim = self.embedding_dim
         levels = self.num_sampling_level
         b, ncam = visible_rgb.shape[:2]
@@ -136,20 +139,24 @@ class Act3D(nn.Module):
         ghost_pcd_pyramid, ghost_pcd_masks_pyramid, position_pyramid = [], [], []
         query_features = self.query_embed[None].expand(b, 1, dim)
         for i in range(levels):
-            u = None if ghost_uniforms is None else ghost_uniforms[i]
+            if ghost_uniforms is not None:
+                u = ghost_uniforms[i]
+            elif ghost_points_override is None:
+                u = draw(generator, torch.rand, (b, n_ghost * (1 if i == 0 else OVERSAMPLE), 3),
+                         bounds.device, dtype=torch.float32)
             if ghost_points_override is not None:
                 ghost_pcd_i = ghost_points_override[i]
                 n_ghost = ghost_pcd_i.shape[1]
             elif i == 0:
                 ghost_pcd_i = sample_uniform_cube(
-                    bounds.expand(b, 2, 3), n_ghost, generator=generator, u=u
+                    bounds.expand(b, 2, 3), n_ghost, u=u
                 )
             else:
                 anchor = gt_position if gt_position is not None else position_pyramid[-1]
                 diameter = self.fine_sampling_ball_diameter / _BALL_DIAMETER_DIVISORS[i]
                 ghost_pcd_i = sample_uniform_ball(
                     anchor, diameter / 2.0, ghost_point_bounds(anchor, diameter, bounds),
-                    n_ghost, generator=generator, u=u,
+                    n_ghost, u=u,
                 )
 
             if i == 0:

@@ -17,13 +17,15 @@ steps.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..device import resolve_device
-from ..nn.dropout import Generators
+from ..nn.dropout import Generators, draw
 from ..ops import rotations as R
 from ..ops.schedulers import make_ddpm_schedule
 from .diffusion_head import DiffusionHead
@@ -150,11 +152,11 @@ class DiffusionPlanner(nn.Module):
         if generator is None and (noise is None or timesteps is None):
             raise ValueError("the training loss needs generator=Generators(...) or both "
                              "noise and timesteps")
-        if noise is None:
-            noise = torch.randn(gt.shape, generator=generator.device, device=gt.device)
+        if noise is None:  # at the global batch, this rank's rows (nn/dropout.py)
+            noise = draw(generator, torch.randn, gt.shape, gt.device)
         if timesteps is None:
-            timesteps = torch.randint(0, self.diffusion_timesteps, (b,),
-                                      generator=generator.device, device=gt.device)
+            timesteps = draw(generator, partial(torch.randint, 0, self.diffusion_timesteps),
+                             (b,), gt.device)
         pos = self.pos_schedule.add_noise(gt[..., :3], noise[..., :3], timesteps)
         rot = self.rot_schedule.add_noise(gt[..., 3:9], noise[..., 3:9], timesteps)
         noisy = torch.cat([pos, rot], dim=-1)
@@ -168,7 +170,7 @@ class DiffusionPlanner(nn.Module):
                                             generators=generator)
 
         valid = (~trajectory_mask)[..., None].to(gt.dtype)
-        n_valid = valid.sum().clamp_min(1.0)
+        n_valid = _batch_count(valid, generator).clamp_min(1.0)
         pos_l1 = ((pred[..., :3] - gt[..., :3]).abs() * valid).sum() / (n_valid * 3.0)
         rot_l1 = ((pred[..., 3:9] - gt[..., 3:9]).abs() * valid).sum() / (n_valid * 6.0)
         return 100.0 * pos_l1 + 10.0 * rot_l1
@@ -176,6 +178,20 @@ class DiffusionPlanner(nn.Module):
     def denoise_step(self, trajectory, trajectory_mask, timestep, context):
         """One denoiser evaluation: the clean-sample prediction."""
         return self.prediction_head.denoise(trajectory, trajectory_mask, timestep, context)
+
+
+def _batch_count(valid: torch.Tensor, generator: Optional[Generators]) -> torch.Tensor:
+    """The number of valid trajectory points the L1 means divide by.  Under
+    data parallelism (``generator.world > 1``) it is the global batch's
+    count (summed over the ranks in float32, then rounded to the loss dtype
+    as a one-device sum is) divided by the world: DDP and FSDP average the
+    ranks' gradients, so the ranks' losses average to the global loss
+    whatever padding each rank holds."""
+    if generator is None or generator.world == 1:
+        return valid.sum()
+    count = valid.detach().float().sum()
+    dist.all_reduce(count)
+    return count.to(valid.dtype) / generator.world
 
 
 @torch.no_grad()
@@ -187,12 +203,13 @@ def compute_trajectory(
     instruction: Optional[torch.Tensor],
     curr_gripper: torch.Tensor,  # (B, 7)
     goal_gripper: torch.Tensor,  # (B, 7)
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Full reverse diffusion; returns (B, L, 7) trajectories.
 
-    Noise comes from ``generator``, or from ``noise = (init_noise
+    Noise comes from ``generator`` (a torch.Generator, or ``Generators``,
+    which draw at the global batch: nn/dropout.py), or from ``noise = (init_noise
     (B, L, 9), step_noises (T, B, L, 9))`` so a test can feed the exact
     numbers of another implementation.
     """
@@ -217,7 +234,7 @@ def compute_trajectory(
     cond_mask = cond_mask[..., None].expand(b, length, d)
 
     def randn():
-        return torch.randn(b, length, d, generator=generator, device=dev)
+        return draw(generator, torch.randn, (b, length, d), dev)
 
     if noise is None:
         trajectory = randn() + cond_data

@@ -74,6 +74,7 @@ class MultiheadAttention(nn.Module):
             slot_competition=self.slot_competition,
             dropout_rate=self.dropout if gens is not None else 0.0,
             generator=None if gens is None else gens.host,
+            dropout_b0=0 if gens is None else gens.rank * query.shape[0],
         )
 
 

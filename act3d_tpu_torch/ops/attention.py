@@ -16,7 +16,9 @@ Attention-weight dropout: with ``dropout_rate > 0`` each call draws one
 int31 seed from a host ``torch.Generator`` (as JAX draws one from its
 dropout key, ops/attention.py:247-249) and hands it to the kernel as a
 launch argument, so no host-device sync happens per call; the keep mask
-is the kernels' hash of (seed, b, h, row, col).
+is the kernels' hash of (seed, dropout_b0 + b, h, row, col), with
+``dropout_b0`` the rows' offset in the global batch under data
+parallelism (every rank draws the same seed).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class AttentionParams(NamedTuple):
     bo: Optional[torch.Tensor] = None
 
 
-def _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate, seed):
+def _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate, seed, b0):
     """softmax over queries, then renormalised over keys; plain dropout
     of the weights with the kernels' hash mask."""
     b, l, e = q.shape
@@ -59,7 +61,7 @@ def _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate, s
     weights = torch.softmax(scores, dim=-2) + 1e-8
     weights = weights / weights.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        keep = dropout_keep(seed, b, num_heads, l, kh.shape[2], dropout_rate, q.device)
+        keep = dropout_keep(seed, b, num_heads, l, kh.shape[2], dropout_rate, q.device, b0)
         weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     out = weights.to(vh.dtype) @ vh
     return out.transpose(1, 2).reshape(b, l, e)
@@ -78,11 +80,13 @@ def multi_head_attention(
     slot_competition: bool = False,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    dropout_b0: int = 0,
 ) -> torch.Tensor:
     """query (B, L, E), key/value (B, S, E); q_pe/k_pe rotary codes
     (B, L, E, 2)/(B, S, E, 2); key_padding_mask (B, S) bool, True = masked.
     dropout_rate > 0 drops attention weights, seeded from the host
-    ``generator``.  Returns (B, L, E) after the output projection."""
+    ``generator``, the rows keyed from ``dropout_b0`` in the global batch.
+    Returns (B, L, E) after the output projection."""
     seed = None
     if dropout_rate > 0.0:  # one int31 seed per call, drawn on the host
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
@@ -97,8 +101,8 @@ def multi_head_attention(
         k = embed_rotary(k, k_pe)
     if slot_competition:
         out = _slot_competition_core(q, k, v, num_heads, key_padding_mask, dropout_rate,
-                                     seed)
+                                     seed, dropout_b0)
     else:
         out = FusedMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), num_heads,
-                             key_padding_mask, float(dropout_rate), seed)
+                             key_padding_mask, float(dropout_rate), seed, dropout_b0)
     return F.linear(out, params.wo, params.bo)

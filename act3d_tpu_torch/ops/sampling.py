@@ -18,7 +18,7 @@ import torch
 
 __all__ = ["sample_uniform_cube", "sample_uniform_ball", "ghost_point_bounds"]
 
-_OVERSAMPLE = 4
+OVERSAMPLE = 4
 
 
 def sample_uniform_cube(
@@ -50,7 +50,7 @@ def sample_uniform_ball(
 
     ``u``, when given, holds the (..., 4N, 3) cube uniforms.
     """
-    pts = sample_uniform_cube(bounds, _OVERSAMPLE * num_points, generator, u)
+    pts = sample_uniform_cube(bounds, OVERSAMPLE * num_points, generator, u)
     d2 = torch.sum((pts - center[..., None, :]) ** 2, dim=-1)
     outside = (d2 >= radius * radius).to(torch.uint8)  # strict < inside
     order = torch.argsort(outside, dim=-1, stable=True)[..., :num_points]

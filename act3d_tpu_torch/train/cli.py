@@ -1,23 +1,36 @@
 """What the two training CLIs (``main_keypose``, ``main_trajectory``)
 share: workspace bounds, dataset arguments, instructions, the host batch
 (in-process or from worker processes, compact-encoded or not), the device
-augmentation, the reference's evaluation size and best-checkpoint key, and
-the step loop with its periodic evaluation and checkpoints."""
+augmentation, the reference's evaluation size and best-checkpoint key, the
+mesh of ``--num_devices`` / ``--fsdp``, and the step loop with its periodic
+evaluation and checkpoints.
+
+Under a launcher (``torchrun --nproc_per_node N``) each rank runs the CLI on
+its card (``cuda:LOCAL_RANK``), assembles its rows of every global batch
+(the datasets' ``rank`` / ``world``), steps through the Trainer's wrapper,
+and reads losses and metrics averaged over the ranks; rank 0 alone logs
+and writes checkpoints, and a stop signal on any rank stops every rank at
+the same step."""
 
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
+import torch.distributed
 
 from ..data.compact import compact_batch
 from ..data.feeder import DeviceFeeder
+from ..parallel.collectives import any_rank, mean_over_ranks
+from ..parallel.mesh import (host_group, init_distributed, local_batch_size, local_rank,
+                              make_mesh)
 from ..utils.registry import get_gripper_loc_bounds, load_instructions
 from .engine import GracefulShutdown, Trainer
 
 __all__ = ["WIRE_KEYS", "best_metric", "compact_wire", "dataset_args", "device_augment",
-           "host_batch", "load_cli_instructions", "n_eval_batches", "run_training",
-           "train_dataset_args", "train_sampler", "workspace_bounds"]
+           "host_batch", "load_cli_instructions", "n_eval_batches", "parallel_setup",
+           "run_training", "train_dataset_args", "train_sampler", "workspace_bounds"]
 
 # batch keys of the depth wire and of instruction ids, which the loss and
 # metric functions decode (data/depthwire.py, train/flagship.py)
@@ -34,8 +47,29 @@ def workspace_bounds(cfg) -> np.ndarray:
                                   buffer=0.04)
 
 
-def dataset_args(cfg, instruction, bounds, **extra):
-    """RLBenchDataset arguments shared by the train and val sets."""
+def parallel_setup(cfg, device):
+    """(mesh, rank, world) of ``--num_devices`` / ``--fsdp``, as JAX's
+    ``main_*.py`` build their mesh: the launcher's process group (none on
+    one process), the ``("dp",)`` or ``("dp", "fsdp")`` mesh over it, and
+    JAX's ValueError for an fsdp or a batch size that does not divide."""
+    rank, world = init_distributed(device)
+    mesh = make_mesh(cfg.num_devices, cfg.fsdp, torch.device(device).type)
+    local_batch_size(cfg.batch_size, world)
+    local_batch_size(cfg.batch_size_val, world)
+    if world > 1 and torch.device(device).type == "cuda":
+        # one build of the kernel sources per machine, not one per rank
+        if local_rank() == 0:
+            from ..kernels import _build
+
+            _build.build()
+        torch.distributed.barrier(group=host_group())
+    return mesh, rank, world
+
+
+def dataset_args(cfg, instruction, bounds, rank: int = 0, world: int = 1, **extra):
+    """RLBenchDataset arguments shared by the train and val sets; ``rank``
+    of ``world``: each batch drawn is the global batch's rows of this
+    rank."""
     return dict(
         instructions=instruction,
         taskvar=[(task, var) for task, var_instr in instruction.items() for var in var_instr],
@@ -48,6 +82,8 @@ def dataset_args(cfg, instruction, bounds, **extra):
         seed=cfg.seed,
         wire=cfg.wire,
         instr_mode=cfg.instr_mode,
+        rank=rank,
+        world=world,
         **extra,
     )
 
@@ -136,17 +172,22 @@ def run_training(cfg, trainer: Trainer, batch_fn, device, evaluate, loss_key: st
     best/last checkpoint; on SIGTERM/SIGINT a last checkpoint.  The log
     line also carries the mean wall time per step since the last evaluation
     and the mean wait in the feeder.  ``sampler`` (the one ``batch_fn``
-    draws from, if any) is closed after the feeder.  Returns the
+    draws from, if any) is closed after the feeder.  Over several ranks the
+    loss is the ranks' mean (the global batch's), the stop request is any
+    rank's (read every step on the host group, so no rank waits in a
+    collective the others skip), and only rank 0 prints.  Returns the
     evaluations."""
     evals = []
     feeder = None
+    lead = trainer.rank == 0
     try:
         feeder = DeviceFeeder(batch_fn, device=device)
         with GracefulShutdown() as stop:
             period_start, n_steps, waited = time.perf_counter(), 0, 0.0
             for step_id in range(trainer.step_count, cfg.train_iters):
-                if stop.requested:
-                    print(f"Shutdown requested: checkpointing at step {step_id}")
+                if any_rank(stop.requested):
+                    if lead:
+                        print(f"Shutdown requested: checkpointing at step {step_id}")
                     trainer.save_checkpoint(cfg.log_dir, last_only=True)
                     break
                 t0 = time.perf_counter()
@@ -156,7 +197,7 @@ def run_training(cfg, trainer: Trainer, batch_fn, device, evaluate, loss_key: st
                 n_steps += 1
                 if (step_id + 1) % cfg.val_freq:
                     continue
-                loss = float(out["loss"])
+                loss = mean_over_ranks(float(out["loss"]))
                 step_s = (time.perf_counter() - period_start) / n_steps
                 data_wait_s = waited / n_steps
                 t0 = time.perf_counter()
@@ -173,7 +214,8 @@ def run_training(cfg, trainer: Trainer, batch_fn, device, evaluate, loss_key: st
                 # a missing key maps to None, which save_checkpoint treats as best
                 trainer.save_checkpoint(
                     cfg.log_dir, new_loss=val_metrics.get(metric_key) if metric_key else None)
-                print(f"Step {step_id}: loss {loss:.4f} val {val_metrics}")
+                if lead:
+                    print(f"Step {step_id}: loss {loss:.4f} val {val_metrics}")
                 period_start, n_steps, waited = time.perf_counter(), 0, 0.0
     finally:
         if feeder is not None:

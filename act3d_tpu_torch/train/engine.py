@@ -1,11 +1,14 @@
 """Training engine: steps, evaluation, checkpoints, logging.
 
-Counterpart of ``act3d_tpu/train/engine.py`` on one device: the loss and
-its backward run eagerly (the attention cores through the fused kernels),
-AdamW (``train/optim.py``) steps the trainable params, and checkpoints
-keep JAX's best/last semantics in ``best.pt`` / ``last.pt`` (JAX writes
+Counterpart of ``act3d_tpu/train/engine.py``: the loss and its backward
+run eagerly (the attention cores through the fused kernels), AdamW
+(``train/optim.py``) steps the trainable params, and checkpoints keep
+JAX's best/last semantics in ``best.pt`` / ``last.pt`` (JAX writes
 ``.msgpack``); :func:`resume` is the CLIs' ``--checkpoint`` /
-``--auto_resume``.  The dp/fsdp mesh of the JAX trainer is not ported yet.
+``--auto_resume``.  With a mesh (``parallel/mesh.py``) each rank steps its
+rows of the global batch through DDP (``("dp",)``) or FSDP2 (``("dp",
+"fsdp")``), evaluation averages over the ranks, and checkpoints are
+gathered to the one-device layout and written by rank 0.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed
 import torch.nn as nn
 
 from ..nn.dropout import Generators
-from .optim import GradientAccumulator, make_optimizer
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import all_gather_metrics
+from .optim import GradientAccumulator, freeze_backbone, make_optimizer
 
 __all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume",
            "summary_writer_class"]
@@ -95,18 +101,41 @@ class MetricLogger:
             self.tb.close()
 
 
+class _Runner(nn.Module):
+    """The module the data-parallel wrappers wrap: ``forward(fn, *args,
+    **kwargs)`` is ``fn(*args, **kwargs)``, a loss, metric or sampling
+    function that calls ``model``, so that every use of the model enters
+    through the wrapper (DDP's gradient hooks, FSDP2's root all-gather)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(*args, **kwargs)
+
+
 class Trainer:
-    """Trainer of one model on one device.
+    """Trainer of one model on one device or over a mesh of ranks.
 
     Args:
       loss_fn: (batch, generators) -> (scalar loss, aux dict); called with
         the model in training mode.
-      model: the module; its backbone is frozen by :func:`make_optimizer`.
+      model: the unwrapped module; its backbone is frozen before it is
+        wrapped.
       metrics_fn: optional (batch, generators) -> dict of scalars for eval.
       lr / weight_decay: AdamW (reference defaults 1e-4, 5e-4).
       accumulate_grad_batches: micro-batches averaged per optimizer step.
-      seed: of the :class:`Generators` that drive dropout and noise.
+      log_dir: the logger's directory (rank 0 logs).
+      seed: of the :class:`Generators` that drive dropout and noise; every
+        rank seeds them alike and draws at the global batch.
       use_tensorboard: the logger also writes TensorBoard events.
+      mesh: None (one device) or the mesh of ``parallel.mesh.make_mesh``;
+        the batches given to :meth:`step` and :meth:`eval_step` are then
+        this rank's rows of the global batch.
+      compute_dtype: the dtype the loss function computes in (its
+        ``compute_dtype``); under FSDP2 the sharded parameters are gathered
+        in it.
     """
 
     def __init__(
@@ -121,25 +150,33 @@ class Trainer:
         log_dir: Optional[Path] = None,
         seed: int = 0,
         use_tensorboard: bool = False,
+        mesh=None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         self.model = model
+        self.rank, self.world = (mesh.get_rank(), mesh.size()) if mesh is not None else (0, 1)
+        device = next(model.parameters()).device
+        self.runner = pmesh.shard_module(_Runner(freeze_backbone(model)), mesh, compute_dtype)
+        # after sharding: FSDP2 replaces the parameters by DTensors
         self.optimizer = make_optimizer(model, lr=lr, weight_decay=weight_decay)
         self.accumulator = GradientAccumulator(self.optimizer, accumulate_grad_batches)
-        device = next(model.parameters()).device
-        self.generators = Generators.from_seed(seed, device)
+        self.generators = Generators.from_seed(seed, device, self.rank, self.world)
         self.step_count = 0
         self.best_loss: Optional[float] = None
         self._loss_fn = loss_fn
         self._metrics_fn = metrics_fn
-        self.logger = MetricLogger(log_dir, use_tensorboard) if log_dir else None
+        self.logger = (MetricLogger(log_dir, use_tensorboard)
+                       if log_dir and self.rank == 0 else None)
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward, and an optimizer step every
         ``accumulate_grad_batches`` calls.  The loss comes back as a device
         tensor (no sync)."""
-        self.model.train()
-        loss, aux = self._loss_fn(batch, self.generators)
-        loss.backward()
+        self.runner.train()
+        steps = self.accumulator.count + 1 == self.accumulator.every_k
+        with pmesh.set_gradient_sync(self.runner, steps):
+            loss, aux = self.runner(self._loss_fn, batch, self.generators)
+            loss.backward()
         self.accumulator.step()
         self.step_count += 1
         return {"loss": loss.detach(), **(aux or {})}
@@ -149,19 +186,22 @@ class Trainer:
         (per-sample or scalar tensors), in eval mode without grad."""
         if self._metrics_fn is None:
             raise ValueError("no metrics_fn provided")
-        self.model.eval()
+        self.runner.eval()
         with torch.no_grad():
-            return self._metrics_fn(batch, self.generators)
+            return self.runner(self._metrics_fn, batch, self.generators)
 
     def evaluate(self, batches: Iterable) -> Dict[str, float]:
-        """Average eval metrics over batches, in eval mode without grad."""
+        """Average eval metrics over batches, in eval mode without grad, and
+        over the ranks (each rank's batch mean is over the same number of
+        rows, so their mean is the global batch's)."""
         sums: Dict[str, float] = {}
         count = 0
         for batch in batches:
             for k, v in self.eval_step(batch).items():
                 sums[k] = sums.get(k, 0.0) + float(torch.as_tensor(v).float().mean())
             count += 1
-        return {k: v / max(count, 1) for k, v in sums.items()}
+        ranks = all_gather_metrics(sums)
+        return {k: sum(r[k] for r in ranks) / (len(ranks) * max(count, 1)) for k in sums}
 
     # ------------------------------------------------------- checkpointing
     def save_checkpoint(self, ckpt_dir: Path, new_loss: Optional[float] = None, *,
@@ -170,28 +210,40 @@ class Trainer:
 
         ``last_only=True`` writes only the resumable ``last.pt``; otherwise
         ``best.pt`` is replaced when ``new_loss <= best_loss`` (or when
-        either is None: the always-overwrite mode).
+        either is None: the always-overwrite mode).  Every rank calls it
+        with the same ``new_loss`` (sharded state is gathered); rank 0
+        writes.
         """
-        ckpt_dir = Path(ckpt_dir)
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
-        if not last_only and (new_loss is None or self.best_loss is None
-                              or new_loss <= self.best_loss):
+        best = not last_only and (new_loss is None or self.best_loss is None
+                                  or new_loss <= self.best_loss)
+        if best:
             self.best_loss = new_loss
-            torch.save(self._payload(), ckpt_dir / "best.pt")
-        torch.save(self._payload(), ckpt_dir / "last.pt")
+        payload = self._payload()
+        if self.rank == 0:
+            ckpt_dir = Path(ckpt_dir)
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            if best:
+                torch.save(payload, ckpt_dir / "best.pt")
+            torch.save(payload, ckpt_dir / "last.pt")
+        if self.world > 1:  # no rank reads the files before rank 0 has written them
+            torch.distributed.barrier(group=pmesh.host_group())
 
     def _payload(self):
+        """The one-device layout whatever the mesh: no wrapper prefix, no
+        DTensor (``parallel.mesh.full_state_dict``)."""
         return {
-            "model": self.model.state_dict(),
+            "model": pmesh.full_state_dict(self.model),
             "optimizer": self.accumulator.state_dict(),
             "step": self.step_count,
             "best_loss": self.best_loss,
         }
 
     def load_checkpoint(self, path: Path):
+        """Load a checkpoint written on any mesh: every rank reads the file
+        and keeps its shards."""
         payload = torch.load(Path(path), map_location=next(self.model.parameters()).device,
                              weights_only=True)
-        self.model.load_state_dict(payload["model"])
+        pmesh.load_full_state_dict(self.model, payload["model"])
         self.accumulator.load_state_dict(payload["optimizer"])
         self.step_count = payload["step"]
         self.best_loss = payload["best_loss"]

@@ -101,10 +101,10 @@ def canonical_batch(batch, bank, augment=None, generators=None):
     """A batch with the canonical keys: the wire decoded
     (``expand_batch``), ``instr_id`` resolved in ``bank`` (the tensor of
     :func:`instruction_bank_on`), then ``augment`` drawing from
-    ``generators.device`` (training only)."""
+    ``generators`` (training only)."""
     batch = _resolve_instr(expand_batch(batch), bank)
     if augment is not None:
-        batch = augment(batch, generators.device)
+        batch = augment(batch, generators)
     return batch
 
 
@@ -113,9 +113,27 @@ def cast_params(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]
     dict: the tensors of JAX's params tree, cast as ``_cast_tree`` casts
     them.  The non-persistent buffers (JAX's constants, such as the
     workspace bounds) stay float32.  The parameters are cast as they are,
-    not detached, so a loss of the cast model backpropagates into them."""
-    return {name: t.to(dtype) for name, t in model.state_dict(keep_vars=True).items()
-            if t.dtype == torch.float32}
+    not detached, so a loss of the cast model backpropagates into them.
+    Under FSDP2 the parameters it manages are left out (sharded DTensors,
+    or gathered in ``dtype`` already by its ``MixedPrecisionPolicy``,
+    ``parallel/mesh.py``), while the frozen trunk it leaves alone and the
+    buffers are cast here; the entries are read without ``state_dict``,
+    whose FSDP2 hook would register the sharded parameters mid-forward."""
+    from torch.distributed.tensor import DTensor
+
+    return {name: t.to(dtype) for name, t in _state_tensors(model).items()
+            if t.dtype == torch.float32 and not isinstance(t, DTensor)}
+
+
+def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The entries of ``model.state_dict(keep_vars=True)`` (parameters under
+    every name, persistent buffers), read from the modules directly."""
+    out = dict(model.named_parameters(remove_duplicate=False))
+    for prefix, module in model.named_modules(remove_duplicate=False):
+        for name, buf in module.named_buffers(recurse=False):
+            if name not in module._non_persistent_buffers_set:
+                out[f"{prefix}.{name}" if prefix else name] = buf
+    return out
 
 
 def _cast_floats(tensors, dtype: Optional[torch.dtype]):
@@ -158,7 +176,7 @@ def diffusion_loss_fn(model: DiffusionPlanner, compute_dtype=None, augment=None,
     dropout on).  ``compute_dtype=torch.bfloat16`` runs the network in bf16
     with float32 master weights and a float32 loss (module docstring).
     ``augment``: an on-device ``(batch, generator) -> batch`` drawing from
-    ``generators.device``, for a dataset built with ``augment_host=False``;
+    ``generators``, for a dataset built with ``augment_host=False``;
     ``instr_bank``: the (n_rows, 53, 512) bank of ``instr_id`` batches."""
     bank = instruction_bank_on(instr_bank, _device_of(model))
 
@@ -223,7 +241,7 @@ def keypose_pred(model: Act3D, batch, generators, use_gt_sampling: bool,
     ``ghost_points_override`` injected by tests."""
     out = _apply(model, compute_dtype,
                  [batch[k] for k in ("rgbs", "pcds", "instr", "curr_gripper")],
-                 dict(generator=None if generators is None else generators.device,
+                 dict(generator=generators,
                       gt_action=batch["action"] if use_gt_sampling else None, **draws))
     return _to_float(out)
 

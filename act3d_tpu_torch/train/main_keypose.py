@@ -9,7 +9,10 @@ SIGTERM/SIGINT checkpointing and ``--eval_only``.  The host path takes
 JAX's flags: ``--num_workers`` (worker processes, ``data/pipeline.py``),
 ``--device_augment`` (Resize / Rotate on the card), ``--compact_transfer``,
 ``--wire depth``, ``--instr_mode ids`` and ``--use_tensorboard``.  It runs
-on the card unless ``--device cpu`` is given.
+on the card unless ``--device cpu`` is given.  Under ``torchrun --nproc_per_node N``
+``--num_devices N`` / ``--fsdp F`` train one global batch over the N
+ranks (DDP, or FSDP2 on the (N/F, F) mesh; ``train/cli.py``,
+``parallel/mesh.py``).
 
 Run:
   python -m act3d_tpu_torch.train.main_keypose \\
@@ -32,10 +35,12 @@ from ..data.dataset import RLBenchDataset
 from ..data.feeder import to_tensors
 from ..device import resolve_device
 from ..models import Act3D
+from ..parallel.collectives import synchronize_between_processes
+from ..parallel.mesh import shutdown_distributed
 from ..utils.registry import count_parameters
 from .cli import (WIRE_KEYS, best_metric, compact_wire, dataset_args, device_augment,
-                  host_batch, load_cli_instructions, n_eval_batches, run_training,
-                  train_dataset_args, train_sampler, workspace_bounds)
+                  host_batch, load_cli_instructions, n_eval_batches, parallel_setup,
+                  run_training, train_dataset_args, train_sampler, workspace_bounds)
 from .engine import Trainer, resume, summary_writer_class
 from .flagship import keypose_loss_fn, keypose_metrics_fn
 from .losses import KeyposeLossAndMetrics, split_metrics_by_task
@@ -46,12 +51,14 @@ MODEL_KEYS = ("rgbs", "pcds", "instr", "curr_gripper", "action") + WIRE_KEYS
 def main(argv=None):
     cfg = parse_config(KeyposeConfig, argv)
     dev = resolve_device(cfg.device)
+    mesh, rank, world = parallel_setup(cfg, dev)
     if cfg.use_tensorboard:
         summary_writer_class()
     bounds = workspace_bounds(cfg)
-    cfg.save(cfg.log_dir / "hparams.json")
+    if rank == 0:
+        cfg.save(cfg.log_dir / "hparams.json")
     instruction = load_cli_instructions(cfg)
-    common = dataset_args(cfg, instruction, bounds, return_low_lvl_trajectory=False,
+    common = dataset_args(cfg, instruction, bounds, rank, world, return_low_lvl_trajectory=False,
                           action_dim=8)
     train_kwargs = train_dataset_args(cfg, common)
     train_ds = RLBenchDataset(**train_kwargs)
@@ -75,7 +82,8 @@ def main(argv=None):
         use_instruction=bool(cfg.use_instruction),
         device=dev,
     )
-    print("Model parameters:", count_parameters(model))
+    if rank == 0:
+        print("Model parameters:", count_parameters(model))
     criterion = KeyposeLossAndMetrics(
         position_loss=cfg.position_loss,
         rotation_parametrization=cfg.rotation_parametrization,
@@ -103,17 +111,25 @@ def main(argv=None):
         log_dir=cfg.log_dir,
         seed=cfg.seed,
         use_tensorboard=bool(cfg.use_tensorboard),
+        mesh=mesh,
+        compute_dtype=compute_dtype,
     )
     resume(trainer, cfg.log_dir, cfg.checkpoint, bool(cfg.auto_resume))
 
     def run_eval(dataset):
         """Aggregated n-batch eval, metrics split by task and averaged over
-        batches (reference engine.py:155-174)."""
+        batches (reference engine.py:155-174); over several ranks the
+        per-sample metrics and task names of the ranks' rows are gathered
+        first, so each batch is split as the global batch."""
         sums, counts = {}, {}
         for _ in range(n_eval_batches(cfg)):
             vb = host_batch(dataset, cfg.batch_size_val, MODEL_KEYS + ("task",))
             tasks = vb.pop("task")
             metrics = trainer.eval_step(to_tensors(vb, dev))
+            if world > 1:
+                metrics = synchronize_between_processes(
+                    {k: v.cpu().numpy() for k, v in metrics.items()} | {"task": tasks})
+                tasks = list(metrics.pop("task"))
             for k, v in split_metrics_by_task(metrics, tasks).items():
                 sums[k] = sums.get(k, 0.0) + v
                 counts[k] = counts.get(k, 0) + 1
@@ -123,7 +139,8 @@ def main(argv=None):
         if cfg.eval_only:
             metrics = run_eval(val_ds)
             for k, v in sorted(metrics.items()):
-                print(f"{k}: {v:.4f}")
+                if rank == 0:
+                    print(f"{k}: {v:.4f}")
             return metrics
         compact = compact_wire(cfg, train_ds)
         sampler = train_sampler(cfg, train_kwargs, compact)
@@ -136,6 +153,7 @@ def main(argv=None):
     finally:
         if trainer.logger:
             trainer.logger.close()
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ in JAX.  The host path takes JAX's flags (``--num_workers``,
 ``--instr_mode ids``); with ``--use_tensorboard 1`` the scalars go to a
 TensorBoard event file too, with the sampler eval's scatter image of its
 first sample (``val-viz/viz``).  It runs on the card unless ``--device
-cpu`` is given.
+cpu`` is given.  Under ``torchrun --nproc_per_node N``
+``--num_devices N`` / ``--fsdp F`` train one global batch over the N
+ranks (DDP, or FSDP2 on the (N/F, F) mesh; ``train/cli.py``,
+``parallel/mesh.py``).
 
 Run:
   python -m act3d_tpu_torch.train.main_trajectory \\
@@ -35,10 +38,12 @@ from ..data.dataset import RLBenchDataset
 from ..data.feeder import to_tensors
 from ..device import resolve_device
 from ..models import DiffusionPlanner, compute_trajectory
+from ..parallel.collectives import mean_over_ranks
+from ..parallel.mesh import shutdown_distributed
 from ..utils.registry import count_parameters
 from .cli import (WIRE_KEYS, best_metric, compact_wire, dataset_args, device_augment,
-                  host_batch, load_cli_instructions, n_eval_batches, run_training,
-                  train_dataset_args, train_sampler, workspace_bounds)
+                  host_batch, load_cli_instructions, n_eval_batches, parallel_setup,
+                  run_training, train_dataset_args, train_sampler, workspace_bounds)
 from .engine import Trainer, resume, summary_writer_class
 from .flagship import (canonical_batch, diffusion_loss_fn, diffusion_metrics_fn,
                        instruction_bank_on)
@@ -51,12 +56,14 @@ MODEL_KEYS = ("trajectory", "trajectory_mask", "rgbs", "pcds", "instr", "curr_gr
 def main(argv=None):
     cfg = parse_config(TrajectoryConfig, argv)
     dev = resolve_device(cfg.device)
+    mesh, rank, world = parallel_setup(cfg, dev)
     if cfg.use_tensorboard:
         summary_writer_class()
     bounds = workspace_bounds(cfg)
-    cfg.save(cfg.log_dir / "hparams.json")
+    if rank == 0:
+        cfg.save(cfg.log_dir / "hparams.json")
     instruction = load_cli_instructions(cfg)
-    common = dataset_args(cfg, instruction, bounds, return_low_lvl_trajectory=True,
+    common = dataset_args(cfg, instruction, bounds, rank, world, return_low_lvl_trajectory=True,
                           dense_interpolation=bool(cfg.dense_interpolation),
                           interpolation_length=cfg.interpolation_length,
                           action_dim=cfg.action_dim)
@@ -81,7 +88,8 @@ def main(argv=None):
         gripper_loc_bounds=tuple(map(tuple, bounds)),
         device=dev,
     )
-    print("Model parameters:", count_parameters(model))
+    if rank == 0:
+        print("Model parameters:", count_parameters(model))
     bank = train_ds.instruction_bank
     compute_dtype = torch.bfloat16 if cfg.mixed_precision else None
     trainer = Trainer(diffusion_loss_fn(model, compute_dtype, augment=augment, instr_bank=bank),
@@ -89,7 +97,8 @@ def main(argv=None):
                       metrics_fn=diffusion_metrics_fn(model, instr_bank=bank), lr=cfg.lr,
                       accumulate_grad_batches=cfg.accumulate_grad_batches,
                       log_dir=cfg.log_dir, seed=cfg.seed,
-                      use_tensorboard=bool(cfg.use_tensorboard))
+                      use_tensorboard=bool(cfg.use_tensorboard), mesh=mesh,
+                      compute_dtype=compute_dtype)
     resume(trainer, cfg.log_dir, cfg.checkpoint, bool(cfg.auto_resume))
     sampler_bank = instruction_bank_on(bank, dev)
 
@@ -99,15 +108,16 @@ def main(argv=None):
 
     def run_sampler_eval(step_id):
         """The reference's run_inference path (main_trajectory.py:218-259):
-        100-step reverse diffusion on one val batch (its wire decoded first)
-        and its trajectory metrics (per-sample entries left out); with
-        TensorBoard, the first sample's scatter image."""
+        100-step reverse diffusion on one val batch (its wire decoded first;
+        each rank its rows, the noise drawn at the global batch) and its
+        trajectory metrics averaged over the ranks (per-sample entries left
+        out); with TensorBoard, the first sample's scatter image."""
         vb = canonical_batch(to_tensors(host_batch(val_ds, cfg.batch_size_val, MODEL_KEYS),
                                         dev), sampler_bank)
-        model.eval()
-        pred = compute_trajectory(model, vb["trajectory_mask"], vb["rgbs"], vb["pcds"],
-                                  vb["instr"], vb["curr_gripper"], vb["action"],
-                                  generator=trainer.generators.device)
+        trainer.runner.eval()  # through the wrapper: FSDP2 gathers the root's params
+        pred = trainer.runner(compute_trajectory, model, vb["trajectory_mask"], vb["rgbs"],
+                              vb["pcds"], vb["instr"], vb["curr_gripper"], vb["action"],
+                              generator=trainer.generators)
         metrics = TrajectoryCriterion.compute_metrics(pred, vb["trajectory"])
         if trainer.logger and trainer.logger.tb is not None:
             from .viz import trajectory_scatter_image
@@ -116,7 +126,7 @@ def main(argv=None):
                 pred[0].cpu().numpy(), vb["trajectory"][0].cpu().numpy(),
                 vb["trajectory_mask"][0].cpu().numpy())
             trainer.logger.tb.add_image("val-viz/viz", img, step_id)
-        return {k: float(v.mean()) for k, v in metrics.items()
+        return {k: mean_over_ranks(float(v.mean())) for k, v in metrics.items()
                 if not k.startswith("per_sample/")}
 
     def evaluate(step_id):
@@ -129,7 +139,8 @@ def main(argv=None):
         if cfg.eval_only:
             metrics = trainer.evaluate(batches(val_ds, cfg.batch_size_val))
             for k, v in sorted(metrics.items()):
-                print(f"{k}: {v:.4f}")
+                if rank == 0:
+                    print(f"{k}: {v:.4f}")
             return metrics
         compact = compact_wire(cfg, train_ds)
         sampler = train_sampler(cfg, train_kwargs, compact)
@@ -142,6 +153,7 @@ def main(argv=None):
     finally:
         if trainer.logger:
             trainer.logger.close()
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -7,6 +7,11 @@ LayerNorm parameters (``ndim <= 1``), and the frozen backbone, here
 betas (0.9, 0.999), eps 1e-8 and decoupled decay is optax.adamw's
 arithmetic.  JAX's flat-vector layout (``flatten=True``) is a TPU dispatch
 trick and is not carried over.
+
+Under data parallelism the backbone is frozen (:func:`freeze_backbone`)
+before the model is wrapped, and the groups are formed from the
+unwrapped module's parameter names, which FSDP2 keeps (its parameters
+become DTensors of the same names and global shapes).
 """
 
 from __future__ import annotations
@@ -16,19 +21,31 @@ from typing import List
 import torch
 import torch.nn as nn
 
-__all__ = ["GradientAccumulator", "make_optimizer"]
+from ..parallel.mesh import full_optimizer_state, load_full_optimizer_state
+
+__all__ = ["GradientAccumulator", "freeze_backbone", "make_optimizer"]
+
+
+def freeze_backbone(model: nn.Module) -> nn.Module:
+    """``requires_grad_(False)`` on every param whose name contains
+    ``backbone``."""
+    for name, param in model.named_parameters():
+        if "backbone" in name:
+            param.requires_grad_(False)
+    return model
 
 
 def make_optimizer(model: nn.Module, lr: float = 1e-4,
                    weight_decay: float = 5e-4) -> torch.optim.AdamW:
-    """AdamW over the trainable params of ``model``; freezes every param
-    whose name contains ``backbone``."""
+    """AdamW over the trainable params of ``model`` (not a DDP wrapper: its
+    names carry a ``module.`` prefix); freezes every param whose name
+    contains ``backbone``."""
     decay: List[nn.Parameter] = []
     no_decay: List[nn.Parameter] = []
-    for name, param in model.named_parameters():
+    for name, param in freeze_backbone(model).named_parameters():
         if "backbone" in name:
-            param.requires_grad_(False)
-        elif param.ndim > 1:
+            continue
+        if param.ndim > 1:
             decay.append(param)
         else:
             no_decay.append(param)
@@ -70,8 +87,10 @@ class GradientAccumulator:
         return True
 
     def state_dict(self):
-        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+        """In the one-device layout whatever the mesh (every rank calls it:
+        sharded moments are gathered)."""
+        return {"optimizer": full_optimizer_state(self.optimizer), "count": self.count}
 
     def load_state_dict(self, state):
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_full_optimizer_state(self.optimizer, state["optimizer"])
         self.count = state["count"]

@@ -154,11 +154,41 @@ phases above:
      same), step times and peak memory.
  Phases 18 and 19 train with --mixed_precision 1 (their launches per step
  are the bf16 entries').
+Data parallelism (--num_devices / --fsdp) adds:
+ 13c. kernels_dropout_offset (after 13b): the fused-MHA forward and
+     backward, float32 and bf16, at every ChainedDiffuser dropout site on
+     rows 8-15 of a batch of 16 with dropout_b0 = 8, against the plain
+     versions of the whole batch, rows 8-15 (phase 6's and 13b's bounds);
+     the drop pattern (v the identity of each head) equal to rows 8-15 of
+     the full-batch mask, every drop counted.
+  9c. dp_equal (after 9b): small models (phases 8 and 9's widths, a global
+     batch of 4, the planner's rows padded unevenly) at world 1 in this
+     process against two ranks spawned on the card over gloo with CUDA
+     tensors: DDP (dp2) for the planner and Act3D, FSDP2 on a (1, 2) mesh
+     (dp1 x fsdp2) for the planner; and against DDP and FSDP2 at world 1
+     over NCCL.  3 steps: losses within rtol 2e-4, gradients by JAX's
+     per-leaf scaled rule (atol 5e-4), each rank's launches those of world
+     1, each fsdp2 rank's trainable and moment bytes below 0.6 of world 1's.
+ 20. cli_dp (after 19): both CLIs at their scripts' flags under python -m
+     torch.distributed.run --standalone (ranks run chip_smoke.py
+     --cli_child SPEC): one rank over NCCL with --num_devices 1 (keypose 3
+     steps, trajectory 4, the steps before the first evaluation), float32,
+     and the trajectory CLI with --mixed_precision 1; step losses within
+     rtol 2e-4 of the non-launched runs (phases 14 and 15, and a
+     non-launched bf16 run here).  Then the trajectory CLI on two ranks
+     sharing the card over gloo (--num_devices 2 --fsdp 2: FSDP2), its
+     global losses against phase 15's and each rank's trainable and moment
+     bytes; eval.main over its best.pt and the launched keypose run's, two
+     keysteps.  Also: the host batch of the trajectory CLI at world 1 and
+     per rank of 2 (replayed draws), an elementwise dropout draw at world 1
+     and 2.
 Then the samplers' fork server and resource tracker are stopped (they
 would outlive the script by seconds), and the script fails if any process
 it started is left.
-Every main-path phase (serve, train, train_act3d and the five CLIs) runs
-with all launch counts set to 0 just before it and read just after.
+Every main-path phase (serve, train, train_act3d, the five CLIs, dp_equal
+and cli_dp) runs with all launch counts set to 0 just before it and read
+just after; the launches of dp_equal's and cli_dp's child processes,
+counted by each child's wrappers, are added to their phase.
 The second-to-last line is a JSON object of kernel numbers (six kernels
 and their six bf16 entries);
 the last is {"ok": true, "device": {...}}.  Without a card it exits
@@ -2051,6 +2081,510 @@ def phase_serve(dev, card):
         peak_memory_bytes=peak, resident_memory_bytes=resident, weight_bytes=weights)
 
 
+# ------------------------------------------------------------ data parallel
+# The dropout offset of the fused-MHA kernels: the ChainedDiffuser's
+# dropout sites, the global batch of TRAIN_B rows split over two ranks;
+# rank 1's rows start at b0 = TRAIN_B // 2.
+DP_WORLD = 2
+DP_B0 = TRAIN_B // DP_WORLD
+# dp_equal: the small models of phase_small_train / phase_small_keypose
+# (dropout 0.1 in the planner), a global batch of 4, 3 steps; JAX's
+# tests/test_sharding.py bounds
+DP_STEPS, DP_BATCH, DP_RTOL, DP_GRAD_ATOL = 3, 4, 2e-4, 5e-4
+DP_SMALL = {"diffusion": dict(image_size=(64, 64), embedding_dim=24,
+                              num_query_cross_attn_layers=3),
+            "keypose": dict(image_size=(128, 128), embedding_dim=24, num_ghost_points=40,
+                            num_sampling_level=2)}
+# cli_dp: steps before each CLI's first evaluation (the batches drawn
+# after it depend on the order of the feeder's and the evaluation's draws)
+CLI_DP_KEYPOSE_ITERS, CLI_DP_TRAJECTORY_ITERS = 3, 4
+
+
+def phase_kernels_dropout_offset(dev, card):
+    """#1d and #2 with a batch offset: at every ChainedDiffuser dropout site,
+    rank 1's rows (b0 = 8 of a global batch of 16) through the float32 and
+    bf16 kernels against the plain versions of the whole batch, rows 8-15:
+    outputs and gradients within the bounds of phase_train_kernels /
+    phase_kernels_bf16; then the drop pattern itself (v the identity of
+    each head, so out is the kept weights) equal to rows 8-15 of the plain
+    full-batch mask, every drop counted."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    e, h, bf = PLANNER_CFG["embedding_dim"], 8, torch.bfloat16
+    d = e // h
+    b, b0 = TRAIN_B, DP_B0
+    rows = slice(b0, b)
+    t0 = time.perf_counter()
+    for i, (site, l, s, kind, rate, _) in enumerate(TRAIN_SHAPES):
+        if not rate:
+            continue
+        seed = 9000 + i
+        mask = train_mask(kind, b, s, dev)
+        part_mask = None if mask is None else mask[rows].contiguous()
+        q = torch.randn(b, l, e, generator=gen, device=dev) * d ** -0.5
+        k, v, g = (torch.randn(b, n, e, generator=gen, device=dev) for n in (s, s, l))
+        # float32: the kernel on rows b0.. against the plain full batch
+        ref_out, ref_stats = fused_mha_forward_reference(q, k, v, h, mask, rate, seed)
+        ref_grads = fused_mha_backward_reference(q, k, v, ref_out, ref_stats, g, h, mask,
+                                                 rate, seed)
+        part = [x[rows].contiguous() for x in (q, k, v, g)]
+        out, stats = fused_mha_forward(*part[:3], h, part_mask, True, rate, seed,
+                                       dropout_b0=b0)
+        grads = fused_mha_backward(*part[:3], out, stats, part[3], h, part_mask, rate, seed,
+                                   dropout_b0=b0)
+        torch.testing.assert_close(out, ref_out[rows], atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(stats, ref_stats[rows], atol=ATOL, rtol=RTOL)
+        for got, want in zip(grads, ref_grads):
+            torch.testing.assert_close(got, want[rows], atol=BWD_ATOL, rtol=BWD_RTOL)
+        f32_err = _max_errs([(out, ref_out[rows])] + list(zip(grads, (w[rows] for w in
+                                                                      ref_grads))))
+        # bf16: the kernel on rows b0.. against its plain version there (b0)
+        # and the float32 plain version of the whole batch, rows b0..
+        pb = [x.to(bf) for x in part]
+        out_b, stats_b = fused_mha_forward(*pb[:3], h, part_mask, True, rate, seed,
+                                           dropout_b0=b0)
+        grads_b = fused_mha_backward(*pb[:3], out_b, stats_b, pb[3], h, part_mask, rate, seed,
+                                     dropout_b0=b0)
+        plain_b, _ = fused_mha_forward_reference(*pb[:3], h, part_mask, rate, seed,
+                                                 dropout_b0=b0)
+        full32 = [x.to(bf).float() for x in (q, k, v, g)]
+        ref_b, _ = fused_mha_forward_reference(*full32[:3], h, mask, rate, seed)
+        fwd = bf16_errors(out_b, plain_b, ref_b[rows])
+        plain_gb = fused_mha_backward_reference(*pb[:3], out_b, stats_b, pb[3], h, part_mask,
+                                                rate, seed, dropout_b0=b0)
+        ref_gb = fused_mha_backward_reference(
+            *full32[:3], torch.cat([ref_b[:b0], out_b.float()]),
+            torch.cat([ref_stats[:b0], stats_b]), full32[3], h, mask, rate, seed)
+        bwd = [bf16_errors(got, plain, want[rows], BWD_FLOOR)
+               for got, plain, want in zip(grads_b, plain_gb, ref_gb)]
+        assert fwd["ok"] and all(x["ok"] for x in bwd), (site, fwd, bwd)
+        print(f"kernels_dropout_offset {site:16s} B={b - b0} of {b} (b0 {b0}) L={l} S={s} "
+              f"rate={rate} mask={kind}: float32 fwd/bwd vs plain full batch max_abs "
+              f"{f32_err[0]:.3e} | bf16 fwd {fwd['kernel_vs_f32']:.3e} (bound "
+              f"{fwd['bound']:.3e}), bwd "
+              + "/".join(f"{x['kernel_vs_f32']:.3e}" for x in bwd) + " (bounds "
+              + "/".join(f"{x['bound']:.3e}" for x in bwd) + ")", flush=True)
+
+    # the drop pattern: with v the identity of each head (S <= d), out is
+    # the kept weights, zero where dropped
+    l, s, rate = TRAJ_LEN, 15, DROPOUT
+    q = torch.randn(b, l, h * d, generator=gen, device=dev) * d ** -0.5
+    k = torch.randn(b, s, h * d, generator=gen, device=dev)
+    v = torch.eye(s, d, device=dev).repeat(b - b0, 1, h)
+    full_keep = dropout_keep(99, b, h, l, s, rate, dev)
+    for dt in (torch.float32, bf):
+        out = fused_mha_forward(q[rows].contiguous().to(dt), k[rows].contiguous().to(dt),
+                                v.to(dt), h, None, dropout_rate=rate, dropout_seed=99,
+                                dropout_b0=b0)
+        zeros = out.reshape(b - b0, l, h, d)[..., :s].transpose(1, 2) == 0
+        assert torch.equal(zeros, ~full_keep[rows]), dt
+        assert not torch.equal(~full_keep[:b0], ~full_keep[rows])  # rank 0 drops others
+        print(f"kernels_dropout_offset pattern ({dt}, B={b - b0} at b0 {b0}, L={l}, S={s}, "
+              f"H={h}, rate {rate}, seed 99): the kernel drops {int(zeros.sum())} of the "
+              f"{int((~full_keep[rows]).sum())} weights rows {b0}-{b - 1} of the full-batch "
+              f"mask drop, exactly", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"kernels_dropout_offset: {seconds:.1f} s | {card}", flush=True)
+    return seconds
+
+
+def _dp_batch(kind):
+    if kind == "diffusion":
+        batch = synthetic_trajectory_batch(DP_BATCH, 2, (64, 64), 8, seed=SEED + 3)
+        batch["trajectory_mask"][0, -5:] = True  # rank 0 holds fewer valid points
+        batch["trajectory_mask"][1, -2:] = True
+        return batch
+    return synthetic_keypose_batch(DP_BATCH, 1, (128, 128), seed=SEED + 3)
+
+
+def _dp_loss_fn(kind, model, compute_dtype=None):
+    if kind == "diffusion":
+        return diffusion_loss_fn(model, compute_dtype)
+    return keypose_loss_fn(model, KeyposeLossAndMetrics(), compute_dtype)
+
+
+def dp_run(rank, world, kind, mesh_shape, dev):
+    """One rank's gradients of the first backward (full tensors) and the
+    losses (the ranks' mean) of DP_STEPS Trainer steps of a small model
+    on its rows of the global batch, and the kernel launches it made.
+    ``mesh_shape``: None (no mesh), (n,) the ("dp",) mesh (DDP) or (n, f)
+    the ("dp", "fsdp") mesh (FSDP2)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from act3d_tpu_torch.parallel.collectives import mean_over_ranks
+    from act3d_tpu_torch.parallel.mesh import _full, batch_rows
+
+    mesh = None if mesh_shape is None else init_device_mesh(
+        "cuda", mesh_shape, mesh_dim_names=("dp", "fsdp")[:len(mesh_shape)])
+    torch.manual_seed(SEED)
+    make = make_diffusion_model if kind == "diffusion" else make_keypose_model
+    model = make(**DP_SMALL[kind], device=dev)
+    trainer = Trainer(_dp_loss_fn(kind, model), model, lr=1e-3, seed=SEED + 5, mesh=mesh)
+    local = {k: v.to(dev) for k, v in batch_rows(rank, world, _dp_batch(kind)).items()}
+    start = launch_counts()
+    trainer.runner.train()
+    loss, _ = trainer.runner(trainer._loss_fn, local, trainer.generators)
+    loss.backward()
+    grads = {n: _full(p.grad).float().cpu().numpy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    losses = [mean_over_ranks(loss.item())]
+    for _ in range(DP_STEPS):
+        losses.append(mean_over_ranks(trainer.step(local)["loss"].item()))
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(launch_counts(), start))
+    return dict(grads=grads, losses=losses, launches=launched, **state_bytes(trainer),
+                param_types=sorted({type(p).__name__ for p in model.parameters()}),
+                backend=(torch.distributed.get_backend() if torch.distributed.is_initialized()
+                         else None))
+
+
+def state_bytes(trainer):
+    """This rank's bytes of trainable parameters and AdamW moments (the
+    local shards under FSDP2)."""
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    params = sum(local(p).numel() * local(p).element_size()
+                 for p in trainer.model.parameters() if p.requires_grad)
+    moments = sum(local(v).numel() * local(v).element_size()
+                  for state in trainer.optimizer.state.values()
+                  for k, v in state.items() if k in ("exp_avg", "exp_avg_sq"))
+    return dict(param_bytes=params, moment_bytes=moments)
+
+
+def _dp_entry(rank, world, backend, store_path, runs, queue):
+    """A spawned rank: the port's CUDA device of this rank, one process
+    group over ``backend``, the ``runs`` of dp_run in turn."""
+    import traceback
+
+    try:
+        dev = resolve_device("cuda:0")
+        torch.cuda.set_device(dev)
+        _build.build()  # already built by the parent: loads the libraries
+        torch.distributed.init_process_group(
+            backend, store=torch.distributed.FileStore(store_path, world), rank=rank,
+            world_size=world)
+        try:
+            queue.put((rank, [dp_run(rank, world, kind, shape, dev) for kind, shape in runs],
+                       None))
+        finally:
+            torch.distributed.destroy_process_group()
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _next_result(queue, procs, timeout):
+    """The next rank's (rank, result, error) from ``queue``, waiting at most
+    ``timeout`` seconds; a rank that died without putting one fails at
+    once instead of at the timeout."""
+    import queue as queue_module
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return queue.get(timeout=2)
+        except queue_module.Empty:
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if dead or time.monotonic() > deadline:
+                raise RuntimeError(f"ranks died (exit codes {dead}) or timed out") from None
+
+
+def spawn_ranks(world, backend, runs, tmp):
+    """``runs`` (kind, mesh shape) of dp_run on ``world`` spawned ranks sharing
+    the card over ``backend``; every process joined before it returns."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = str(Path(tmp) / f"store-{backend}-{world}-{time.monotonic_ns()}")
+    procs = [ctx.Process(target=_dp_entry, args=(r, world, backend, store, runs, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = []
+    try:
+        while len(out) < world:
+            out.append(_next_result(queue, procs, 600))
+            assert out[-1][2] is None, f"rank {out[-1][0]} failed:\n{out[-1][2]}"
+    finally:
+        for p in procs:
+            p.join(timeout=60 if len(out) == world else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [r for _, r, _ in sorted(out, key=lambda t: t[0])]
+
+
+def _assert_grads_close(g1, gn):
+    """JAX's tests/test_sharding.py rule: per-leaf scaled, leaves below 1e-6
+    of the largest gradient (the noise floor) skipped."""
+    assert sorted(g1) == sorted(gn), (sorted(g1), sorted(gn))
+    gmax = max(np.abs(a).max() for a in g1.values())
+    checked, worst = 0, 0.0
+    for name in g1:
+        scale = max(np.abs(g1[name]).max(), np.abs(gn[name]).max())
+        if scale < 1e-6 * gmax:
+            continue
+        checked += 1
+        worst = max(worst, float(np.abs(g1[name] - gn[name]).max() / scale))
+        np.testing.assert_allclose(g1[name] / scale, gn[name] / scale, atol=DP_GRAD_ATOL,
+                                   rtol=0, err_msg=name)
+    assert checked > 10, checked
+    return checked, worst
+
+
+def phase_dp_equal(dev, card):
+    """One global batch at world 1 (no process group, this process) against
+    world 2: two ranks spawned on the one card over gloo with CUDA tensors,
+    DDP on the ("dp",) mesh (dp2) for the ChainedDiffuser (dropout 0.1, the
+    ranks' padding uneven) and Act3D, and FSDP2 on the (1, 2) ("dp",
+    "fsdp") mesh (dp1 x fsdp2) for the ChainedDiffuser; and DDP and FSDP2
+    at world 1 over NCCL.  Losses within rtol 2e-4 and gradients by JAX's
+    scaled rule; each rank's launch counts show the kernels ran; each
+    rank's trainable and moment bytes (half under fsdp2)."""
+    t0 = time.perf_counter()
+    ref = {kind: dp_run(0, 1, kind, None, dev) for kind in DP_SMALL}
+    gloo_runs = [(kind, (DP_WORLD,)) for kind in DP_SMALL] + [("diffusion", (1, DP_WORLD))]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        dp2 = spawn_ranks(DP_WORLD, "gloo", gloo_runs, tmp)
+        (nccl,) = spawn_ranks(1, "nccl", [("diffusion", (1,)), ("diffusion", (1, 1))], tmp)
+    checks = [(f"{kind} {'dp1 x fsdp2' if len(shape) == 2 else 'dp2'} (gloo) rank {rank}", kind,
+               runs[i], "gloo", "DTensor" if len(shape) == 2 else "Parameter")
+              for rank, runs in enumerate(dp2) for i, (kind, shape) in enumerate(gloo_runs)]
+    checks += [("diffusion DDP world 1 (nccl)", "diffusion", nccl[0], "nccl", "Parameter"),
+               ("diffusion FSDP2 (1, 1) (nccl)", "diffusion", nccl[1], "nccl", "DTensor")]
+    results = {}
+    for tag, kind, run, backend, ptype in checks:
+        np.testing.assert_allclose(ref[kind]["losses"], run["losses"], rtol=DP_RTOL)
+        checked, worst = _assert_grads_close(ref[kind]["grads"], run["grads"])
+        assert run["launches"] == ref[kind]["launches"], (tag, nonzero(run["launches"]))
+        assert run["launches"][0] and run["launches"][1], nonzero(run["launches"])
+        assert run["backend"] == backend and ptype in run["param_types"], (tag, run["backend"],
+                                                                          run["param_types"])
+        print(f"dp_equal {tag}: losses {run['losses']} vs world 1 {ref[kind]['losses']}; "
+              f"{checked} gradients within {worst:.2e} of the largest (scaled); launches "
+              f"{nonzero(run['launches'])}; trainable params {run['param_bytes']} bytes, "
+              f"moments {run['moment_bytes']} (world 1: {ref[kind]['param_bytes']}, "
+              f"{ref[kind]['moment_bytes']}) | {card}", flush=True)
+        if "fsdp2" in tag:  # each rank holds its half (dim 0 cut in two)
+            assert run["param_bytes"] < 0.6 * ref[kind]["param_bytes"], run
+            assert run["moment_bytes"] == 2 * run["param_bytes"], run
+        results[tag] = dict(losses=run["losses"], param_bytes=run["param_bytes"],
+                            moment_bytes=run["moment_bytes"])
+    results["world1"] = {kind: r["losses"] for kind, r in ref.items()}
+    results["seconds"] = time.perf_counter() - t0
+    print(f"dp_equal: {results['seconds']:.1f} s | {card}", flush=True)
+    launched = [run["launches"] for runs in dp2 + [nccl] for run in runs]
+    return results, tuple(map(sum, zip(*launched)))
+
+
+def cli_child(spec_path):
+    """The body of one rank of a launched CLI (``torchrun ... chip_smoke.py
+    --cli_child SPEC``): ``main(argv)`` with every step recorded; writes
+    this rank's steps, backend, world and parameter types to SPEC's
+    ``out`` directory."""
+    spec = json.loads(Path(spec_path).read_text())
+    main_fn = {"keypose": main_keypose, "trajectory": main_trajectory}[spec["name"]].main
+    seen, init, trainers = {}, Trainer.__init__, []
+
+    def recorded_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        trainers.append(self)
+        seen.update(world=self.world, rank=self.rank,
+                    backend=(torch.distributed.get_backend()
+                             if torch.distributed.is_initialized() else None),
+                    param_types=sorted({type(p).__name__ for p in self.model.parameters()}))
+
+    Trainer.__init__ = recorded_init
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with recorded_steps() as steps:
+            main_fn(spec["argv"])
+    finally:
+        Trainer.__init__ = init
+    out = Path(spec["out"]) / f"rank{seen['rank']}.json"
+    out.write_text(json.dumps(dict(seen, steps=steps, **state_bytes(trainers[-1]),
+                                   peak_memory_bytes=torch.cuda.max_memory_allocated())))
+    return 0
+
+
+def torchrun(nproc, name, argv, tmp):
+    """One launched CLI run, ``python -m torch.distributed.run --standalone
+    --nproc_per_node nproc``: each rank's record (cli_child) and the wall
+    time."""
+    run_dir = Path(tempfile.mkdtemp(prefix=f"{name}-{nproc}-", dir=tmp))
+    spec = run_dir / "spec.json"
+    spec.write_text(json.dumps(dict(name=name, argv=argv, out=str(run_dir))))
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node", str(nproc), str(REPO / "chip_smoke.py"), "--cli_child",
+                    str(spec)], check=True, timeout=900, cwd=REPO)
+    seconds = time.perf_counter() - t0
+    return [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(nproc)], seconds
+
+
+def _step_losses(ranks):
+    """The global batch's loss of each step: the ranks' mean."""
+    return [float(np.mean([r["steps"][i]["loss"] for r in ranks]))
+            for i in range(len(ranks[0]["steps"]))]
+
+
+def _host_cost(argv, card):
+    """Host seconds of one training batch of the trajectory CLI's dataset
+    (median of HOST_REPEATS after a warm call) at world 1 and for each rank
+    of world 2, which replays the other rank's draws."""
+    from act3d_tpu_torch.core.config import TrajectoryConfig, parse_config
+    from act3d_tpu_torch.train.cli import (dataset_args, load_cli_instructions,
+                                           train_dataset_args, workspace_bounds)
+
+    cfg = parse_config(TrajectoryConfig, argv)
+    out = {}
+    for rank, world in ((0, 1), (0, DP_WORLD), (1, DP_WORLD)):
+        common = dataset_args(cfg, load_cli_instructions(cfg), workspace_bounds(cfg), rank,
+                              world, return_low_lvl_trajectory=True,
+                              dense_interpolation=bool(cfg.dense_interpolation),
+                              interpolation_length=cfg.interpolation_length,
+                              action_dim=cfg.action_dim)
+        ds = RLBenchDataset(**train_dataset_args(cfg, common))
+        ds.sample_batch(cfg.batch_size)
+        times = []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            ds.sample_batch(cfg.batch_size)
+            times.append(time.perf_counter() - t0)
+        out[f"rank{rank}_of_{world}"] = float(np.median(times)) * 1e3
+    print(f"cli_dp host batch (trajectory CLI, global batch {cfg.batch_size}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in out.items())
+          + " (median host-clock ms; world 2 decodes half the rows and replays the "
+          f"other half's draws) | {card}", flush=True)
+    return out
+
+
+def _draw_cost(dev, card):
+    """CUDA-event ms per call (50 calls back to back, dispatch included: a
+    generator's offset cannot advance inside device_ms's graph capture) of
+    the planner's largest elementwise dropout, a rank's 11 rows of the
+    global batch 22 at 3072 x 120: at world 1 (11 rows drawn) and as rank 1
+    of 2 (22 rows drawn, 11 kept)."""
+    from act3d_tpu_torch.nn.dropout import dropout
+
+    x = torch.randn(11, 3072, PLANNER_CFG["embedding_dim"], device=dev)
+    out = {}
+    for world in (1, DP_WORLD):
+        gens = Generators.from_seed(SEED, dev, world - 1, world)
+
+        def calls():
+            for _ in range(50):
+                dropout(x, DROPOUT, gens)
+
+        calls()
+        out[f"world{world}"] = _event_ms(calls, 50)
+    print(f"cli_dp dropout draw (11 x 3072 x 120 rows of a rank, event-timed): world 1 "
+          f"{out['world1']:.4f} ms, rank 1 of 2 {out['world2']:.4f} ms | {card}", flush=True)
+    return out
+
+
+def phase_cli_dp(dev, card, cli_kp, cli_traj):
+    """Both training CLIs at their scripts' full widths, launched by
+    torch.distributed.run: one rank over NCCL with --num_devices 1 (a DDP
+    world of 1), float32, and the trajectory CLI also with
+    --mixed_precision 1; their step losses before the first evaluation
+    equal the non-launched runs' (cli_keypose / cli_trajectory, and a
+    non-launched bf16 run here) within rtol 2e-4.  Then the trajectory CLI
+    on two ranks sharing the card over gloo (--num_devices 2 --fsdp 2:
+    FSDP2 on a (1, 2) mesh), its global losses against the one-process
+    run's, each rank's trainable and moment bytes; its best.pt and the
+    launched keypose run's are read by act3d_tpu_torch.eval.main for one
+    keystep per demo.  Every spawned process is joined (subprocess.run)
+    and its process group destroyed by the CLI."""
+    t0 = time.perf_counter()
+    per_step_kp = per_unit_launches(fused_mha_fwd=18, fused_mha_bwd=18,
+                                    scatter_rows_sorted=KEYPOSE_LEVELS - 1)
+    per_step_traj = per_unit_launches(fused_mha_fwd=19, fused_mha_bwd=19)
+    per_step_bf16 = per_unit_launches(fused_mha_fwd_bf16=19, fused_mha_bwd_bf16=19)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_dp_") as tmp:
+        tmp = Path(tmp)
+        tree, ipath = write_fixture_tree(tmp, CLI_EPISODES)
+
+        def argv(name, flags, iters, run, *extra):
+            return ["--dataset", str(tree), "--valset", str(tree), "--instructions",
+                    str(ipath), "--gripper_loc_bounds", str(CLI_BOUNDS), "--tasks",
+                    "pick_and_lift", "--base_log_dir", str(tmp / "logs"), "--run_log_dir", run,
+                    *flags, "--val_freq", str(iters), "--train_iters", str(iters), *extra]
+
+        kp_argv = argv("keypose", KEYPOSE_CLI_FLAGS, CLI_DP_KEYPOSE_ITERS, "kp1",
+                       "--num_devices", "1")
+        traj_argv = argv("trajectory", TRAJECTORY_CLI_FLAGS, CLI_DP_TRAJECTORY_ITERS, "traj1",
+                         "--num_devices", "1")
+        bf16_argv = argv("trajectory", TRAJECTORY_CLI_FLAGS, CLI_DP_TRAJECTORY_ITERS,
+                         "traj1_bf16", "--num_devices", "1", *BF16_CLI_FLAGS)
+        with recorded_steps() as bf16_ref:
+            main_trajectory.main(argv("trajectory", TRAJECTORY_CLI_FLAGS,
+                                      CLI_DP_TRAJECTORY_ITERS, "ref_bf16", *BF16_CLI_FLAGS))
+        runs = [("keypose nccl world 1", "keypose", 1, kp_argv,
+                 [s["loss"] for s in cli_kp["steps"][:CLI_DP_KEYPOSE_ITERS]], per_step_kp,
+                 "nccl"),
+                ("trajectory nccl world 1", "trajectory", 1, traj_argv,
+                 [s["loss"] for s in cli_traj["steps"][:CLI_DP_TRAJECTORY_ITERS]],
+                 per_step_traj, "nccl"),
+                ("trajectory nccl world 1 bf16", "trajectory", 1, bf16_argv,
+                 [s["loss"] for s in bf16_ref], per_step_bf16, "nccl"),
+                ("trajectory gloo dp1 x fsdp2", "trajectory", DP_WORLD,
+                 argv("trajectory", TRAJECTORY_CLI_FLAGS, CLI_DP_TRAJECTORY_ITERS, "traj2",
+                      "--num_devices", str(DP_WORLD), "--fsdp", str(DP_WORLD)),
+                 [s["loss"] for s in cli_traj["steps"][:CLI_DP_TRAJECTORY_ITERS]],
+                 per_step_traj, "gloo")]
+        launches = per_unit_launches()
+        for tag, name, nproc, run_argv, want, per_step, backend in runs:
+            ranks, seconds = torchrun(nproc, name, run_argv, tmp)
+            got = _step_losses(ranks)
+            warm = [float(np.mean([r["steps"][i]["step_s"] for r in ranks])) * 1e3
+                    for i in range(1, len(got))]
+            for r in ranks:
+                assert r["world"] == nproc and r["backend"] == backend, r
+                assert [tuple(s["launches"]) for s in r["steps"]] == [per_step] * len(got), (
+                    r["steps"])
+                launches = tuple(a + sum(s["launches"][i] for s in r["steps"])
+                                 for i, a in enumerate(launches))
+            peak = max(r["peak_memory_bytes"] for r in ranks)
+            state = [(r["param_bytes"], r["moment_bytes"]) for r in ranks]
+            print(f"cli_dp {tag}: step losses {got} vs non-launched {want}; warm step "
+                  f"{np.mean(warm):.1f} ms (steps 1-{len(got) - 1}, mean over ranks); peak "
+                  f"{peak / 2**20:.1f} MiB per rank (largest); trainable params and AdamW "
+                  f"moments per rank (bytes) {state}; parameters "
+                  f"{sorted({t for r in ranks for t in r['param_types']})}; launches per step "
+                  f"{nonzero(per_step)} on each rank; whole launch {seconds:.1f} s | {card}",
+                  flush=True)
+            np.testing.assert_allclose(got, want, rtol=DP_RTOL, err_msg=tag)
+            if "fsdp2" in tag:
+                assert all("DTensor" in r["param_types"] for r in ranks), ranks
+            out[tag] = dict(losses=got, reference=want, warm_step_ms=float(np.mean(warm)),
+                            peak_memory_bytes=peak, state_bytes=state, seconds=seconds,
+                            world=nproc, backend=backend)
+
+        logs = tmp / "logs" / "exp"
+        eval_argv = ["--data_dir", str(tmp), "--instructions", str(ipath),
+                     "--keypose_ckpt", str(logs / "kp1" / "best.pt"),
+                     "--traj_ckpt", str(logs / "traj2" / "best.pt"),
+                     "--output", str(tmp / "eval.json"), "--log_dir", str(tmp / "eval_logs"),
+                     *EVAL_CLI_FLAGS]
+        with recorded_keysteps() as keysteps:
+            results = eval_main.main(eval_argv)
+        expected = per_unit_launches(fused_mha_fwd=expected_launches_per_keystep())
+        assert len(keysteps) == EVAL_CLI_DEMOS and all(
+            k["launches"] == expected for k in keysteps), keysteps
+        launches = tuple(a + sum(k["launches"][i] for k in keysteps)
+                         for i, a in enumerate(launches))
+        print(f"cli_dp eval over the fsdp2 trajectory best.pt and the launched keypose "
+              f"best.pt: {results} ({len(keysteps)} keysteps) | {card}", flush=True)
+        out["host_ms"] = _host_cost(argv("trajectory", TRAJECTORY_CLI_FLAGS, 1, "host"), card)
+    out["draw_ms"] = _draw_cost(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"cli_dp: {out['seconds']:.1f} s | {card}", flush=True)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2083,12 +2617,19 @@ def main() -> int:
 
     def drive(phase, fn, *args):
         """Run one main-path phase with every launch count set to 0 just
-        before it, and read the counts just after."""
+        before it, and read the counts just after (and print its time)."""
         for wrapper, attr in KERNELS.values():
             setattr(wrapper, attr, 0)
+        t0 = time.perf_counter()
         out = fn(*args)
         main_path[phase] = dict(zip(KERNELS, launch_counts()))
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
         return out
+
+    def add_launches(phase, launched):
+        """Launches a phase's child processes counted in their wrappers."""
+        for name, n in zip(KERNELS, launched):
+            main_path[phase][name] += n
 
     rows = phase_kernels(dev, card, sm_mhz)
     phase_small_keystep(dev)
@@ -2103,9 +2644,12 @@ def main() -> int:
     core_rows = phase_attention_core(dev, card, sm_mhz)
     chunked_row = phase_chunked(dev, card)
     bf16_rows = phase_kernels_bf16(dev, card)
+    offset_s = phase_kernels_dropout_offset(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
     phase_small_bf16(dev)
+    dp_equal, dp_launches = drive("dp_equal", phase_dp_equal, dev, card)
+    add_launches("dp_equal", dp_launches)
     (train_fwd, train_bwd), train_steps, train_memory = drive("train", phase_train, dev, card)
     kp_launches, kp_steps, kp_memory = drive("train_act3d", phase_train_act3d, dev, card)
     bf16_train = drive("train_bf16", phase_train, dev, card, torch.bfloat16)
@@ -2145,6 +2689,8 @@ def main() -> int:
               f"flags {multi['data_wait_steady_ms']['second_half']:.1f} ms (steps "
               f"{HOST_PATH_CLI_ITERS // 2}-), warm step {multi['warm_step_ms']:.1f} ms, peak "
               f"{multi['peak_memory_bytes'] / 2**20:.1f} MiB | {card}", flush=True)
+    cli_dp, cli_dp_launches = drive("cli_dp", phase_cli_dp, dev, card, cli_kp, cli_traj)
+    add_launches("cli_dp", cli_dp_launches)
     # the samplers' fork server (which holds torch) and resource tracker
     # would outlive this process by seconds: stop them, and leave nothing
     stop_helper_processes()
@@ -2160,6 +2706,10 @@ def main() -> int:
         if phase in BF16_PHASES:
             assert counts["fused_mha_bwd"] == counts["scatter_rows_sorted"] == 0, counts
             assert counts["fused_mha_fwd_bf16"] and counts["fused_mha_bwd_bf16"], counts
+        elif phase == "cli_dp":  # float32 runs and one --mixed_precision 1 run
+            assert all(counts[n] for n in ("fused_mha_fwd", "fused_mha_bwd",
+                                           "scatter_rows_sorted", "fused_mha_fwd_bf16",
+                                           "fused_mha_bwd_bf16")), counts
         else:
             assert not any(n for name, n in counts.items() if name.endswith("_bf16")), counts
     launches = {name: sum(c[name] for c in main_path.values()) for name in KERNELS}
@@ -2310,7 +2860,8 @@ def main() -> int:
     kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj, cli_eval=cli_eval,
                       cli_keypose_host_path=dict(cli_kp_hp, workers=workers),
                       cli_trajectory_host_path=dict(cli_traj_hp, workers=workers),
-                      host_path=host)
+                      host_path=host, dp_equal=dp_equal, cli_dp=cli_dp,
+                      kernels_dropout_offset_seconds=offset_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2319,6 +2870,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli_child"]:  # one rank of phase_cli_dp's launched CLIs
+        sys.exit(cli_child(sys.argv[2]))
     try:
         code = main()
     finally:  # also when a phase failed

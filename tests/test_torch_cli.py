@@ -11,9 +11,10 @@ each host-path flag (``--num_workers 2``, ``--device_augment``,
 ``--use_tensorboard``) and the two combinations chip_smoke runs train to a
 checkpoint with the batches that flag ships; ``--device_augment 1 --wire
 depth`` raises ValueError, as in JAX; ``--mixed_precision 1`` trains in
-bf16 to float32 checkpoints; and ``NotImplementedError`` for each kind of
-flag the port does not have yet.  Without a card, the default
-device raises.  Nothing here imports JAX.
+bf16 to float32 checkpoints; ``NotImplementedError`` for each kind of
+flag the port does not have yet, and JAX's ValueError for ``--num_devices``
+/ ``--fsdp`` a single process cannot form a mesh of.  Without a card, the
+default device raises.  Nothing here imports JAX.
 """
 
 import json
@@ -232,23 +233,28 @@ def test_cli_trains_in_bf16_checkpoints_resumes_and_evaluates(common, steps_take
     assert metrics and all(math.isfinite(v) for v in metrics.values()) and len(casts) == 3
 
 
-# one flag of each kind the port rejects, with the CLI it is given to
+# one flag of each kind the port rejects, with the CLI it is given to and
+# the error: NotImplementedError for what the port lacks, JAX's ValueError
+# for a mesh the one process cannot form (more devices than the launched
+# ranks, an fsdp that does not divide them; tests/test_torch_parallel.py
+# trains over several ranks)
 REJECTED = [
-    ("keypose", ["--num_devices", "2"], "num_devices"),
-    ("keypose", ["--fsdp", "2"], "fsdp"),
-    ("trajectory", ["--backbone", "resnet"], "backbone"),
-    ("keypose", ["--rotation_parametrization", "6D"], "rotation_parametrization"),
-    ("keypose", ["--weight_tying", "0"], "weight_tying"),
-    ("keypose", ["--approx_topk", "1"], "approx_topk"),
-    ("trajectory", ["--feat_scales_to_use", "3"], "feat_scales_to_use"),
-    ("trajectory", ["--attn_rounds", "2"], "attn_rounds"),
+    ("keypose", ["--num_devices", "2"], "num_devices", ValueError),
+    ("keypose", ["--fsdp", "2"], "fsdp", ValueError),
+    ("trajectory", ["--backbone", "resnet"], "backbone", NotImplementedError),
+    ("keypose", ["--rotation_parametrization", "6D"], "rotation_parametrization",
+     NotImplementedError),
+    ("keypose", ["--weight_tying", "0"], "weight_tying", NotImplementedError),
+    ("keypose", ["--approx_topk", "1"], "approx_topk", NotImplementedError),
+    ("trajectory", ["--feat_scales_to_use", "3"], "feat_scales_to_use", NotImplementedError),
+    ("trajectory", ["--attn_rounds", "2"], "attn_rounds", NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("name,flags,match", REJECTED, ids=[r[2] for r in REJECTED])
-def test_cli_rejects_what_the_port_lacks(tmp_path, name, flags, match):
+@pytest.mark.parametrize("name,flags,match,error", REJECTED, ids=[r[2] for r in REJECTED])
+def test_cli_rejects_what_the_port_lacks(tmp_path, name, flags, match, error):
     main, _ = CLIS[name]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main.main(["--base_log_dir", str(tmp_path), "--device", "cpu", *flags])
     assert not any(tmp_path.iterdir())  # raised before writing anything
 

@@ -15,7 +15,8 @@ is mechanical, leaf by leaf:
   * every other leaf (biases, learned embeddings) keeps its name.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of the
-params).
+params, or the ``params`` of a ``.msgpack`` checkpoint read by
+``core/msgpack.py``, whose bfloat16 leaves are torch tensors).
 
 **reference -> port** (``act3d_from_reference``,
 ``diffusion_planner_from_reference``): the counterpart of
@@ -33,6 +34,12 @@ ignored, as in JAX.
 
 Tied modules (``weight_tying`` / ``gp_emb_tying``) appear once in the
 port: the reference stores a copy per level, which must equal level 0.
+Untied levels map level ``i`` to the port's ``{name}_{i}``, and the
+planner's ``attn_rounds * feat_scales`` blocks map block ``i`` of every
+reference ``ModuleList`` to the port's ``{name}_{i}``, as JAX's
+``convert/torch_to_jax.py`` maps them.  The visual trunk mapped is CLIP's
+ModifiedResNet-50 (``clip_backbone``), as in JAX: a state dict with a
+torchvision ResNet trunk lacks its keys and raises, in both packages.
 Every result loads into the port module with ``strict=True``.
 """
 
@@ -51,7 +58,9 @@ _ATTN = {f"{p}_{kind}": f"{p}_proj.{'weight' if kind == 'kernel' else 'bias'}"
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def _leaf(name: str, value: np.ndarray):
+def _leaf(name: str, value):
+    if isinstance(value, torch.Tensor):
+        value = value.float().numpy()
     value = np.asarray(value, np.float32)
     if name in _ATTN:
         return _ATTN[name], value.T if value.ndim == 2 else value
@@ -239,16 +248,16 @@ def act3d_from_reference(
     num_vis_ins_attn_layers: int = 2,
 ) -> Dict[str, torch.Tensor]:
     """State dict of :class:`models.Act3D` from a reference Act3D ``.pth``
-    state dict.  The port ties the levels, so ``weight_tying`` and
-    ``gp_emb_tying`` must be on."""
-    if not (weight_tying and gp_emb_tying):
-        raise NotImplementedError(
-            'untied Act3D levels are not ported yet: ROADMAP Queue A, item "Act3D options"')
+    state dict, levels tied or untied."""
     m = _Mapper(state_dict)
     m.clip_backbone("backbone", "visual.backbone")
     m.fpn("feature_pyramid", "visual.feature_pyramid")
-    m.embed("ghost_points_embed_pyramid.0", "ghost_points_embed")
-    m.tied("ghost_points_embed_pyramid", num_sampling_level)
+    if gp_emb_tying:
+        m.embed("ghost_points_embed_pyramid.0", "ghost_points_embed")
+        m.tied("ghost_points_embed_pyramid", num_sampling_level)
+    else:
+        for i in range(num_sampling_level):
+            m.embed(f"ghost_points_embed_pyramid.{i}", f"ghost_points_embed_{i}")
     m.embed("curr_gripper_embed", "curr_gripper_embed")
     m.embed("query_embed", "query_embed")
     stacks = [("ghost_point_cross_attn", num_ghost_point_cross_attn_layers),
@@ -257,8 +266,12 @@ def act3d_from_reference(
         stacks.append(("vis_ins_attn", num_vis_ins_attn_layers))
         m.linear("instruction_encoder", "instruction_encoder")
     for name, n_layers in stacks:
-        m.relative_cross_attn_module(f"{name}_pyramid.0", name, n_layers)
-        m.tied(f"{name}_pyramid", num_sampling_level)
+        if weight_tying:
+            m.relative_cross_attn_module(f"{name}_pyramid.0", name, n_layers)
+            m.tied(f"{name}_pyramid", num_sampling_level)
+        else:
+            for i in range(num_sampling_level):
+                m.relative_cross_attn_module(f"{name}_pyramid.{i}", f"{name}_{i}", n_layers)
     if regress_position_offset:
         m.linear("ghost_point_offset_predictor.0", "ghost_point_offset_fc1")
         m.linear("ghost_point_offset_predictor.2", "ghost_point_offset_fc2")
@@ -278,11 +291,8 @@ def diffusion_planner_from_reference(
     num_vis_ins_attn_layers: int = 2,
 ) -> Dict[str, torch.Tensor]:
     """State dict of :class:`models.DiffusionPlanner` from a reference
-    DiffusionPlanner ``.pth`` state dict.  The port builds one attention
-    round over one feature scale."""
-    if attn_rounds != 1 or feat_scales != 1:
-        raise NotImplementedError("multi-scale / multi-round DiffusionHead is not ported yet: "
-                                  'ROADMAP Queue A, item "ChainedDiffuser options"')
+    DiffusionPlanner ``.pth`` state dict with ``attn_rounds * feat_scales``
+    blocks."""
     m = _Mapper(state_dict)
     t, p = "prediction_head", "prediction_head"
     m.clip_backbone(f"{t}.backbone", f"{p}.visual.backbone")
@@ -300,16 +310,17 @@ def diffusion_planner_from_reference(
         m.used.update(k for k in m.sd if k.startswith(f"{t}.instruction_encoder."))
     m.embed(f"{t}.curr_gripper_embed", f"{p}.curr_gripper_embed")
     m.embed(f"{t}.goal_gripper_embed", f"{p}.goal_gripper_embed")
-    if use_instruction:
-        m.parallel_attention(f"{t}.vl_attention.0", f"{p}.vl_attention_0",
-                             num_vis_ins_attn_layers, self1=False, ffn=True, adaln=False)
-        m.parallel_attention(f"{t}.traj_lang_attention.0", f"{p}.traj_lang_attention_0", 1,
-                             self1=False, ffn=False, adaln=False)
-    for name, n_layers in (("traj_attention", num_query_cross_attn_layers - 2),
-                           ("pos_attention", 2), ("rot_attention", 2)):
-        m.parallel_attention(f"{t}.{name}.0", f"{p}.{name}_0", n_layers,
-                             self1=True, ffn=True, adaln=True)
-    for name in ("pos_regressor", "rot_regressor"):
-        m.linear(f"{t}.{name}.0.0", f"{p}.{name}_0_fc1")
-        m.linear(f"{t}.{name}.0.3", f"{p}.{name}_0_fc2")
+    for i in range(attn_rounds * feat_scales):
+        if use_instruction:
+            m.parallel_attention(f"{t}.vl_attention.{i}", f"{p}.vl_attention_{i}",
+                                 num_vis_ins_attn_layers, self1=False, ffn=True, adaln=False)
+            m.parallel_attention(f"{t}.traj_lang_attention.{i}", f"{p}.traj_lang_attention_{i}",
+                                 1, self1=False, ffn=False, adaln=False)
+        for name, n_layers in (("traj_attention", num_query_cross_attn_layers - 2),
+                               ("pos_attention", 2), ("rot_attention", 2)):
+            m.parallel_attention(f"{t}.{name}.{i}", f"{p}.{name}_{i}", n_layers,
+                                 self1=True, ffn=True, adaln=True)
+        for name in ("pos_regressor", "rot_regressor"):
+            m.linear(f"{t}.{name}.{i}.0", f"{p}.{name}_{i}_fc1")
+            m.linear(f"{t}.{name}.{i}.3", f"{p}.{name}_{i}_fc2")
     return m.finish()

@@ -1,1 +1,2 @@
-"""Configuration of the port's training CLIs."""
+"""Configuration of the port's training CLIs, and the reader of flax's
+``.msgpack`` checkpoints."""

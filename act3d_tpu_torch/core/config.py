@@ -3,21 +3,12 @@
 A copy of ``act3d_tpu/core/config.py`` with the same flags and defaults
 (the reference's tap.Tap schemas, main_keypose.py:22-95 and
 main_trajectory.py:25-79), plus ``device`` ("cuda" unless the caller asks
-for "cpu").  A flag whose value asks for what the port does not have yet
-raises ``NotImplementedError`` naming the ROADMAP item, when the config is
-built:
-
-  ==============================================  ===========================
-  flag value                                      ROADMAP Queue A item
-  ==============================================  ===========================
-  ``--backbone`` other than ``clip``              TorchResNet50
-  ``--rotation_parametrization`` (keypose) other  Act3D options
-  than ``quat_from_query``, ``--weight_tying 0``
-  / ``--gp_emb_tying 0``, ``--approx_topk 1``
-  ``--rotation_parametrization`` (trajectory)     ChainedDiffuser options
-  other than ``6D``, ``--feat_scales_to_use`` /
-  ``--attn_rounds`` other than 1
-  ==============================================  ===========================
+for "cpu"; any other value raises ``NotImplementedError`` when the config
+is built).  Every model option of JAX's CLIs is taken: ``--backbone``,
+Act3D's ``--rotation_parametrization``, ``--weight_tying``,
+``--gp_emb_tying`` and ``--approx_topk``, the planner's
+``--rotation_parametrization``, ``--feat_scales_to_use`` and
+``--attn_rounds``.
 
 Two TPU knobs change how JAX computes and not what: ``fast_prng`` (the
 TPU's rbg PRNG) and ``flat_optimizer`` (flattened AdamW groups); they are
@@ -175,36 +166,9 @@ class TrajectoryConfig(CommonConfig):
 
 
 def _reject_unported(cfg: CommonConfig) -> None:
-    """Raise NotImplementedError for a flag value the port lacks, naming the
-    ROADMAP Queue A item that ports it by its title."""
-    rules = [
-        (cfg.backbone != "clip", f"--backbone {cfg.backbone}",
-         'ROADMAP Queue A, item "TorchResNet50"'),
-        (cfg.device not in ("cuda", "cpu"), f"--device {cfg.device}", "cuda or cpu only"),
-    ]
-    if isinstance(cfg, KeyposeConfig):
-        act3d = 'ROADMAP Queue A, item "Act3D options"'
-        rules += [
-            (cfg.rotation_parametrization != "quat_from_query",
-             f"--rotation_parametrization {cfg.rotation_parametrization}",
-             f"{act3d} (rotation parametrizations)"),
-            (not cfg.weight_tying or not cfg.gp_emb_tying, "--weight_tying 0 / --gp_emb_tying 0",
-             f"{act3d} (untied levels)"),
-            (cfg.approx_topk, "--approx_topk", f"{act3d} (approximate top-k)"),
-        ]
-    if isinstance(cfg, TrajectoryConfig):
-        planner = 'ROADMAP Queue A, item "ChainedDiffuser options"'
-        rules += [
-            (cfg.rotation_parametrization != "6D",
-             f"--rotation_parametrization {cfg.rotation_parametrization}",
-             f"{planner} (6D only)"),
-            (cfg.feat_scales_to_use != 1 or cfg.attn_rounds != 1,
-             "--feat_scales_to_use / --attn_rounds != 1",
-             f"{planner} (multi-scale DiffusionHead)"),
-        ]
-    for bad, flag, item in rules:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    """Raise NotImplementedError for a ``--device`` the port does not run on."""
+    if cfg.device not in ("cuda", "cpu"):
+        raise NotImplementedError(f"--device {cfg.device} is not ported: cuda or cpu only")
 
 
 def parse_config(cls, argv=None):

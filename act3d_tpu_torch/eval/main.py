@@ -7,7 +7,9 @@ on stored RLBench demos task by task, and dump the success rates to JSON
 (``task -> {variation: rate, "mean": rate}``).
 
 Checkpoints load from the port Trainer's ``.pt`` files (``best.pt`` /
-``last.pt``) or from reference ``.pth`` torch checkpoints (through
+``last.pt``), from the JAX Trainer's ``.msgpack`` files (``best.msgpack`` /
+``last.msgpack``, read by ``core/msgpack.py`` and mapped by the flax
+bridge) or from reference ``.pth`` torch checkpoints (through
 :mod:`act3d_tpu_torch.convert`, stripping DDP prefixes as eval1.py:137-153
 does).  The flags are JAX's, plus ``--device`` (the card by default; the
 CPU only when asked).
@@ -29,7 +31,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..convert import act3d_from_reference, diffusion_planner_from_reference
+from ..convert import (act3d_from_flax, act3d_from_reference, diffusion_planner_from_flax,
+                       diffusion_planner_from_reference)
+from ..core.msgpack import load_msgpack
 from ..device import resolve_device
 from ..models import Act3D, DiffusionPlanner
 from ..utils.registry import get_gripper_loc_bounds, load_instructions
@@ -39,9 +43,11 @@ from .rlbench_env import RLBenchEnv
 __all__ = ["build_models", "load_params", "main"]
 
 
-def load_params(path, model: torch.nn.Module, convert_fn) -> torch.nn.Module:
+def load_params(path, model: torch.nn.Module, convert_fn, flax_fn=act3d_from_flax
+                ) -> torch.nn.Module:
     """Load a checkpoint into ``model`` (``strict=True``): a port ``.pt``
-    (the Trainer's ``payload["model"]``) or a reference ``.pth``
+    (the Trainer's ``payload["model"]``), a JAX ``.msgpack`` (its
+    ``payload["params"]``, mapped by ``flax_fn``) or a reference ``.pth``
     (``{"weight": state_dict}``, mapped by ``convert_fn``)."""
     path = Path(path)
     if path.suffix == ".pth":
@@ -50,11 +56,10 @@ def load_params(path, model: torch.nn.Module, convert_fn) -> torch.nn.Module:
     elif path.suffix == ".pt":
         state = torch.load(path, map_location="cpu", weights_only=True)["model"]
     elif path.suffix == ".msgpack":
-        raise NotImplementedError(
-            f"{path}: loading the JAX package's .msgpack checkpoints is not ported yet: "
-            'ROADMAP Queue A, item ".msgpack loading"')
+        state = flax_fn(load_msgpack(path)["params"])
     else:
-        raise ValueError(f"{path}: expected a .pt (port) or .pth (reference) checkpoint")
+        raise ValueError(f"{path}: expected a .pt (port), .msgpack (JAX) or .pth (reference) "
+                         "checkpoint")
     model.load_state_dict(state, strict=True)
     return model
 
@@ -98,14 +103,14 @@ def build_models(args, bounds):
         num_ghost_point_cross_attn_layers=args.num_ghost_point_cross_attn_layers,
         num_query_cross_attn_layers=args.keypose_query_cross_attn_layers,
         num_vis_ins_attn_layers=args.num_vis_ins_attn_layers,
-    ))
+    ), act3d_from_flax)
     load_params(args.traj_ckpt, traj_model, lambda sd: diffusion_planner_from_reference(
         sd,
         use_instruction=bool(args.use_instruction),
         use_goal=True,
         num_query_cross_attn_layers=args.num_query_cross_attn_layers,
         num_vis_ins_attn_layers=args.num_vis_ins_attn_layers,
-    ))
+    ), diffusion_planner_from_flax)
     return keypose_model, traj_model
 
 

@@ -11,11 +11,24 @@ point is the position.
 
 Fine levels attend to the top-k (32*32*ncam) context tokens nearest the
 previous estimate, sorted by index as in JAX, so the gather's backward is
-the sorted row-scatter kernel.  The reference configuration is ported:
-weights tied across levels (JAX ``weight_tying`` and ``gp_emb_tying``, one
-submodule called at every level), the rotation read from the query as a
-quaternion (``quat_from_query``) and the optional ``regress_position_offset``
-heads.  JAX's ``train_mode`` is the module's training flag: it picks
+the sorted row-scatter kernel; ``approx_topk`` selects them with
+``topk_nearest_context(approx=True)`` (ops/geometry.py states its rule).
+Every option of JAX's module is ported:
+
+  * ``backbone``: ``clip`` or ``resnet`` (nn/encoder.py);
+  * ``weight_tying`` / ``gp_emb_tying``: tied levels call one submodule
+    (``ghost_point_cross_attn``, ``query_cross_attn``, ``vis_ins_attn``)
+    and read one ``ghost_points_embed``; untied levels have one per level
+    under flax's names (``ghost_point_cross_attn_{i}``,
+    ``ghost_points_embed_{i}``, ...);
+  * ``rotation_parametrization``: the rotation comes from the query
+    (``*_from_query``) or from the last level's ghost-point feature at the
+    argmax of the final mask (``*_from_top_ghost``, the first maximum as
+    ``jnp.argmax``), as a unit quaternion (``quat_*``, 4 numbers) or a
+    rotation matrix from ortho-6D (``6D*``, 6 numbers, (B, 3, 3) out);
+  * the ``regress_position_offset`` heads.
+
+JAX's ``train_mode`` is the module's training flag: it picks
 ``num_ghost_points`` (training) or ``num_ghost_points_val``.
 """
 
@@ -38,25 +51,29 @@ from ..ops.sampling import (OVERSAMPLE, ghost_point_bounds, sample_uniform_ball,
                             sample_uniform_cube)
 
 _BALL_DIAMETER_DIVISORS = [None, 1.0, 4.0, 16.0]
-_QUAT_DIM = 4
 
 
 class Act3D(nn.Module):
     def __init__(
         self,
+        backbone: str = "clip",
         image_size=(256, 256),
         embedding_dim: int = 60,
         num_attn_heads: int = 4,
         num_ghost_point_cross_attn_layers: int = 2,
         num_query_cross_attn_layers: int = 2,
         num_vis_ins_attn_layers: int = 2,
+        rotation_parametrization: str = "quat_from_query",
         gripper_loc_bounds=((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)),
         num_ghost_points: int = 1000,
         num_ghost_points_val: int = 10000,
+        weight_tying: bool = True,
+        gp_emb_tying: bool = True,
         num_sampling_level: int = 3,
         fine_sampling_ball_diameter: float = 0.16,
         regress_position_offset: bool = False,
         use_instruction: bool = False,
+        approx_topk: bool = False,
         device="cuda",
     ):
         super().__init__()
@@ -74,30 +91,46 @@ class Act3D(nn.Module):
         self.regress_position_offset = regress_position_offset
         self.fine_sampling_ball_diameter = fine_sampling_ball_diameter
         self.use_instruction = use_instruction
+        self.approx_topk = approx_topk
+        self.weight_tying = weight_tying
+        self.gp_emb_tying = gp_emb_tying
+        self.rotation_parametrization = rotation_parametrization
+        self.rotation_dim = 4 if "quat" in rotation_parametrization else 6
         self.register_buffer(
             "gripper_loc_bounds",
             torch.tensor(gripper_loc_bounds, dtype=torch.float32), persistent=False,
         )
 
-        self.visual = VisualEncoder(self.image_size, dim, num_sampling_level)
-        self.ghost_points_embed = nn.Parameter(torch.randn(1, dim))
+        self.visual = VisualEncoder(self.image_size, dim, num_sampling_level, backbone)
+        for name in self._level_names("ghost_points_embed", gp_emb_tying):
+            setattr(self, name, nn.Parameter(torch.randn(1, dim)))
         self.curr_gripper_embed = nn.Parameter(torch.randn(1, dim))
         self.query_embed = nn.Parameter(torch.randn(1, dim))
 
-        self.ghost_point_cross_attn = RelativeCrossAttentionModule(
-            dim, num_attn_heads, num_ghost_point_cross_attn_layers)
-        self.query_cross_attn = RelativeCrossAttentionModule(
-            dim, num_attn_heads, num_query_cross_attn_layers)
+        stacks = [("ghost_point_cross_attn", num_ghost_point_cross_attn_layers),
+                  ("query_cross_attn", num_query_cross_attn_layers)]
         if use_instruction:
-            self.vis_ins_attn = RelativeCrossAttentionModule(
-                dim, num_attn_heads, num_vis_ins_attn_layers)
+            stacks.append(("vis_ins_attn", num_vis_ins_attn_layers))
+        for stack, n_layers in stacks:
+            for name in self._level_names(stack, weight_tying):
+                setattr(self, name, RelativeCrossAttentionModule(dim, num_attn_heads, n_layers))
+        if use_instruction:
             self.instruction_encoder = nn.Linear(512, dim)
         self.gripper_state_fc1 = nn.Linear(dim, dim)
-        self.gripper_state_fc2 = nn.Linear(dim, _QUAT_DIM + 1)
+        self.gripper_state_fc2 = nn.Linear(dim, self.rotation_dim + 1)
         if regress_position_offset:
             self.ghost_point_offset_fc1 = nn.Linear(dim, dim)
             self.ghost_point_offset_fc2 = nn.Linear(dim, 3)
         self.to(resolve_device(device))
+
+    def _level_names(self, name: str, tied: bool):
+        """One submodule or parameter for every level (tied), or one per
+        level under flax's ``{name}_{i}``."""
+        return [name] if tied else [f"{name}_{i}" for i in range(self.num_sampling_level)]
+
+    def _level(self, name: str, tied: bool, i: int):
+        """Level ``i``'s submodule or parameter."""
+        return getattr(self, name if tied else f"{name}_{i}")
 
     def forward(
         self,
@@ -163,7 +196,8 @@ class Act3D(nn.Module):
                 context_feats_i = rgb_feats_pyramid[0]
                 context_xyz_i = pcd_pyramid[0]
             else:
-                idx = topk_nearest_context(position_pyramid[-1], pcd_pyramid[i], fine_k)
+                idx = topk_nearest_context(position_pyramid[-1], pcd_pyramid[i], fine_k,
+                                           approx=self.approx_topk)
                 idx = torch.sort(idx, dim=-1).values
                 context_feats_i = gather_tokens(rgb_feats_pyramid[i], idx, sorted_indices=True)
                 context_xyz_i = gather_tokens(pcd_pyramid[i], idx, sorted_indices=True)
@@ -171,13 +205,15 @@ class Act3D(nn.Module):
             context_feats_i = torch.cat([context_feats_i, curr_gripper_feats], dim=1)
             context_pos_i = torch.cat([context_pos_i, curr_gripper_pos], dim=1)
             if self.use_instruction:
-                context_feats_i = self.vis_ins_attn(context_feats_i, instr_feats)[-1]
+                vis_ins_attn = self._level("vis_ins_attn", self.weight_tying, i)
+                context_feats_i = vis_ins_attn(context_feats_i, instr_feats)[-1]
                 context_feats_i = torch.cat([context_feats_i, instr_feats], dim=1)
                 context_pos_i = torch.cat([context_pos_i, instr_dummy_pos], dim=1)
 
             ghost_pos_i = rotary_pe_3d(ghost_pcd_i, dim)
-            ghost_feats_i = self.ghost_points_embed[None].expand(b, n_ghost, dim)
-            ghost_feats_i = self.ghost_point_cross_attn(
+            ghost_embed = self._level("ghost_points_embed", self.gp_emb_tying, i)
+            ghost_feats_i = ghost_embed[None].expand(b, n_ghost, dim)
+            ghost_feats_i = self._level("ghost_point_cross_attn", self.weight_tying, i)(
                 ghost_feats_i, context_feats_i, query_pos=ghost_pos_i,
                 value_pos=context_pos_i,
             )[-1]
@@ -187,7 +223,7 @@ class Act3D(nn.Module):
             else:
                 query_pos_i = rotary_pe_3d(position_pyramid[-1][:, None], dim)
                 context_pos_for_query = context_pos_i
-            query_outputs = self.query_cross_attn(
+            query_outputs = self._level("query_cross_attn", self.weight_tying, i)(
                 query_features, context_feats_i, query_pos=query_pos_i,
                 value_pos=context_pos_for_query,
             )
@@ -207,11 +243,17 @@ class Act3D(nn.Module):
                 F.relu(self.ghost_point_offset_fc1(ghost_feats_i)))
             position = position + fine_ghost_pcd_offsets[batch_rows, top_idx]
 
-        pred = self.gripper_state_fc2(F.relu(self.gripper_state_fc1(query_features[:, 0])))
+        if self.rotation_parametrization.endswith("from_top_ghost"):
+            features = ghost_feats_i[batch_rows, top_idx]
+        else:  # *_from_query
+            features = query_features[:, 0]
+        pred = self.gripper_state_fc2(F.relu(self.gripper_state_fc1(features)))
+        rot = pred[:, :self.rotation_dim]
         return {
             "position": position,
-            "rotation": R.normalise_quat(pred[:, :_QUAT_DIM]),
-            "gripper": torch.sigmoid(pred[:, _QUAT_DIM:]),
+            "rotation": (R.normalise_quat(rot) if self.rotation_dim == 4
+                         else R.rotation_matrix_from_ortho6d(rot)),
+            "gripper": torch.sigmoid(pred[:, self.rotation_dim:]),
             "position_pyramid": position_pyramid,
             "ghost_pcd_pyramid": ghost_pcd_pyramid,
             "ghost_pcd_masks_pyramid": ghost_pcd_masks_pyramid,

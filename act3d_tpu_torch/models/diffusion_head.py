@@ -9,13 +9,24 @@ do not change.  In training mode ``denoise`` applies JAX's dropout (rate
 0.1 by default) after ``traj_enc_fc1`` and the regressors' ``fc1`` and
 inside every attention stack, drawn from the ``generators`` it is given.
 
-One attention round over one feature scale is ported (the reference
-configuration); the blocks keep their flax names with the ``_0`` suffix.
+The head runs ``attn_rounds`` rounds over ``feat_scales_to_use`` feature
+scales: ``n_blocks = attn_rounds * feat_scales_to_use`` blocks, each with
+its own attention stacks and regressors under flax's names
+(``vl_attention_{i}``, ``traj_attention_{i}``, ``pos_regressor_{i}_fc1``,
+...), block ``round * scales + scale`` attending to that scale's visual
+tokens.  With ``use_goal``, scales above 0 attend only to the
+``nn_per_step * L`` points nearest the trajectory so far
+(``ops.geometry.find_traj_nn``: 64 per step at scale 1, 16 above), gathered
+with ``torch.gather`` as JAX gathers them with ``take_along_axis`` (the
+gather's backward is autograd's scatter-add, as XLA's); without it they
+attend to the whole level.  Every block updates the trajectory (positions
+by residual, rotations replaced) and ``denoise`` returns every block's
+trajectory.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -24,6 +35,7 @@ import torch.nn.functional as F
 from ..nn.encoder import VisualEncoder
 from ..nn.dropout import Generators, dropout
 from ..nn.layers import ParallelAttention, active_generators
+from ..ops.geometry import find_traj_nn
 from ..ops.rotary import rotary_pe_3d, sinusoidal_pos_emb
 
 
@@ -37,6 +49,7 @@ def _xavier_linear(d_in: int, d_out: int) -> nn.Linear:
 class DiffusionHead(nn.Module):
     def __init__(
         self,
+        backbone: str = "clip",
         image_size=(256, 256),
         embedding_dim: int = 120,
         output_dim: int = 9,
@@ -45,6 +58,8 @@ class DiffusionHead(nn.Module):
         num_query_cross_attn_layers: int = 6,
         use_instruction: bool = False,
         use_goal: bool = False,
+        feat_scales_to_use: int = 1,
+        attn_rounds: int = 1,
         dropout: float = 0.1,
     ):
         super().__init__()
@@ -58,7 +73,9 @@ class DiffusionHead(nn.Module):
         self.embedding_dim = dim
         self.use_instruction = use_instruction
         self.use_goal = use_goal
-        self.visual = VisualEncoder(image_size, dim, 1)
+        self.feat_scales_to_use = feat_scales_to_use
+        self.attn_rounds = attn_rounds
+        self.visual = VisualEncoder(image_size, dim, feat_scales_to_use, backbone)
         self.traj_enc_fc1 = nn.Linear(output_dim, dim)
         self.traj_enc_fc2 = nn.Linear(dim, dim)
         self.curr_gripper_encoder = nn.Linear(output_dim, dim)
@@ -76,16 +93,20 @@ class DiffusionHead(nn.Module):
                     self_attention2=False, cross_attention1=True,
                     cross_attention2=False, rotary_pe=True, use_adaln=True,
                     dropout=dropout)
-        if use_instruction:
-            self.vl_attention_0 = ParallelAttention(num_vis_ins_attn_layers, **cross_only)
-            self.traj_lang_attention_0 = ParallelAttention(1, apply_ffn=False, **cross_only)
-        self.traj_attention_0 = ParallelAttention(num_query_cross_attn_layers - 2, **traj)
-        self.pos_attention_0 = ParallelAttention(2, **traj)
-        self.rot_attention_0 = ParallelAttention(2, **traj)
-        self.pos_regressor_0_fc1 = _xavier_linear(dim, dim)
-        self.pos_regressor_0_fc2 = _xavier_linear(dim, 3)
-        self.rot_regressor_0_fc1 = _xavier_linear(dim, dim)
-        self.rot_regressor_0_fc2 = _xavier_linear(dim, output_dim - 3)
+        for i in range(attn_rounds * feat_scales_to_use):
+            if use_instruction:
+                setattr(self, f"vl_attention_{i}",
+                        ParallelAttention(num_vis_ins_attn_layers, **cross_only))
+                setattr(self, f"traj_lang_attention_{i}",
+                        ParallelAttention(1, apply_ffn=False, **cross_only))
+            setattr(self, f"traj_attention_{i}",
+                    ParallelAttention(num_query_cross_attn_layers - 2, **traj))
+            setattr(self, f"pos_attention_{i}", ParallelAttention(2, **traj))
+            setattr(self, f"rot_attention_{i}", ParallelAttention(2, **traj))
+            setattr(self, f"pos_regressor_{i}_fc1", _xavier_linear(dim, dim))
+            setattr(self, f"pos_regressor_{i}_fc2", _xavier_linear(dim, 3))
+            setattr(self, f"rot_regressor_{i}_fc1", _xavier_linear(dim, dim))
+            setattr(self, f"rot_regressor_{i}_fc2", _xavier_linear(dim, output_dim - 3))
 
     def encode_context(
         self,
@@ -133,9 +154,9 @@ class DiffusionHead(nn.Module):
         timestep: torch.Tensor,  # (B,)
         context: Dict[str, object],
         generators: Optional[Generators] = None,
-    ) -> torch.Tensor:
-        """Clean-trajectory prediction (B, L, output_dim).  ``generators``
-        drive dropout in training mode."""
+    ) -> List[torch.Tensor]:
+        """Every block's clean-trajectory prediction (B, L, output_dim), in
+        block order.  ``generators`` drive dropout in training mode."""
         dim = self.embedding_dim
         b, length = trajectory.shape[:2]
         gens = active_generators(self, self.dropout, generators)
@@ -153,11 +174,36 @@ class DiffusionHead(nn.Module):
             torch.arange(length, device=trajectory.device), dim
         )[None].expand(b, length, dim)
 
-        context_feats = context["rgb_feats_pyramid"][0]
-        context_pos = rotary_pe_3d(context["pcd_pyramid"][0], dim)
+        outputs: List[torch.Tensor] = []
+        for attn_round in range(self.attn_rounds):
+            for scale in range(self.feat_scales_to_use):
+                context_feats = context["rgb_feats_pyramid"][scale]
+                context_xyz = context["pcd_pyramid"][scale]
+                if self.use_goal and scale > 0:
+                    prev = outputs[-1] if outputs else trajectory
+                    idx = find_traj_nn(prev[..., :3], context_xyz,
+                                       nn_per_step=64 if scale == 1 else 16)
+                    context_feats = torch.gather(
+                        context_feats, 1, idx[..., None].expand(-1, -1, dim))
+                    context_xyz = torch.gather(context_xyz, 1, idx[..., None].expand(-1, -1, 3))
+                i = attn_round * self.feat_scales_to_use + scale
+                update = self._block(i, context, context_feats, context_xyz, traj_feats,
+                                     traj_pos, traj_time_pos, time_feats, trajectory_mask,
+                                     drop, generators)
+                trajectory = torch.cat([trajectory[..., :3] + update[..., :3],
+                                        update[..., 3:]], dim=-1)
+                outputs.append(trajectory)
+        return outputs
+
+    def _block(self, i, context, context_feats, context_xyz, traj_feats, traj_pos,
+               traj_time_pos, time_feats, trajectory_mask, drop, generators):
+        """Block ``i`` over one scale's context: the (B, L, output_dim)
+        update, positions first."""
+        dim = self.embedding_dim
+        context_pos = rotary_pe_3d(context_xyz, dim)
         if self.use_instruction:
-            context_feats, _ = self.vl_attention_0(context_feats, context["instr_feats"],
-                                                   generators=generators)
+            context_feats, _ = getattr(self, f"vl_attention_{i}")(
+                context_feats, context["instr_feats"], generators=generators)
         context_feats = torch.cat([context_feats, context["curr_gripper_feats"]], dim=1)
         context_pos = torch.cat([context_pos, context["curr_gripper_pos"]], dim=1)
         if self.use_goal:
@@ -165,7 +211,7 @@ class DiffusionHead(nn.Module):
             context_pos = torch.cat([context_pos, context["goal_gripper_pos"]], dim=1)
 
         if self.use_instruction:
-            traj_feats, _ = self.traj_lang_attention_0(
+            traj_feats, _ = getattr(self, f"traj_lang_attention_{i}")(
                 traj_feats, context["instr_feats"],
                 seq1_key_padding_mask=trajectory_mask, seq1_sem_pos=traj_time_pos,
                 generators=generators,
@@ -173,9 +219,11 @@ class DiffusionHead(nn.Module):
         kwargs = dict(seq1_key_padding_mask=trajectory_mask, seq1_pos=traj_pos,
                       seq2_pos=context_pos, seq1_sem_pos=traj_time_pos,
                       ada_sgnl=time_feats, generators=generators)
-        traj_feats, _ = self.traj_attention_0(traj_feats, context_feats, **kwargs)
-        pos_feats, _ = self.pos_attention_0(traj_feats, context_feats, **kwargs)
-        rot_feats, _ = self.rot_attention_0(traj_feats, context_feats, **kwargs)
-        pos = self.pos_regressor_0_fc2(drop(F.relu(self.pos_regressor_0_fc1(pos_feats))))
-        rot = self.rot_regressor_0_fc2(drop(F.relu(self.rot_regressor_0_fc1(rot_feats))))
-        return torch.cat([trajectory[..., :3] + pos, rot], dim=-1)
+        traj_feats, _ = getattr(self, f"traj_attention_{i}")(traj_feats, context_feats, **kwargs)
+        pos_feats, _ = getattr(self, f"pos_attention_{i}")(traj_feats, context_feats, **kwargs)
+        rot_feats, _ = getattr(self, f"rot_attention_{i}")(traj_feats, context_feats, **kwargs)
+        pos = getattr(self, f"pos_regressor_{i}_fc2")(
+            drop(F.relu(getattr(self, f"pos_regressor_{i}_fc1")(pos_feats))))
+        rot = getattr(self, f"rot_regressor_{i}_fc2")(
+            drop(F.relu(getattr(self, f"rot_regressor_{i}_fc1")(rot_feats))))
+        return torch.cat([pos, rot], dim=-1)

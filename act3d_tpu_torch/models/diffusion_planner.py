@@ -3,16 +3,21 @@
 Counterpart of ``act3d_tpu/models/diffusion_planner.py``: two DDPM
 schedules (positions: scaled_linear; rotations: squaredcos_cap_v2), both
 predicting the clean sample; positions normalised to [-1, 1] by the
-gripper workspace bounds; rotations as ortho-6D.  As in the reference, the
-dataset-layout quaternion (xyzw) is fed to the wxyz-convention maths
-unchanged; the 6D parametrization is self-consistent under this
-relabelling, so outputs land back in dataset layout.
+gripper workspace bounds; rotations as ortho-6D (``rotation_parametrization
+"6D"``, 9 numbers a pose) or, for any other value, as the normalised
+quaternion itself (7 numbers a pose, normalised again after sampling).  As
+in the reference, the dataset-layout quaternion (xyzw) is fed to the
+wxyz-convention maths unchanged; the 6D parametrization is
+self-consistent under this relabelling, so outputs land back in dataset
+layout.
 
 ``forward`` is the training loss of JAX ``DiffusionPlanner.__call__``:
 noise at a uniform random timestep, the validity-masked
-100 * L1(pos) + 10 * L1(rot6d).  :func:`compute_trajectory` encodes the
-observation once and runs the reverse process as a Python loop over the
-steps.
+100 * L1(pos) + 10 * L1(rot) summed over the head's blocks, where L1(rot)
+reads columns 3:9 and divides by 6 whatever the parametrization, as JAX
+does.  :func:`compute_trajectory` encodes the observation once and runs
+the reverse process as a Python loop over the steps, on the last block's
+prediction.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from .diffusion_head import DiffusionHead
 class DiffusionPlanner(nn.Module):
     def __init__(
         self,
+        backbone: str = "clip",
         image_size=(256, 256),
         embedding_dim: int = 120,
         output_dim: int = 7,
@@ -42,17 +48,18 @@ class DiffusionPlanner(nn.Module):
         use_instruction: bool = False,
         use_goal: bool = False,
         use_goal_at_test: bool = True,
+        feat_scales_to_use: int = 1,
+        attn_rounds: int = 1,
         rotation_parametrization: str = "6D",
         diffusion_timesteps: int = 100,
         gripper_loc_bounds=((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)),
         device="cuda",
     ):
         super().__init__()
-        if rotation_parametrization != "6D":
-            raise NotImplementedError("only the 6D rotation parametrization is ported")
         dev = resolve_device(device)
         self.output_dim = output_dim
-        self.internal_dim = output_dim + 2
+        self.rotation_parametrization = rotation_parametrization
+        self.internal_dim = output_dim + (2 if rotation_parametrization == "6D" else 0)
         self.use_instruction = use_instruction
         self.use_goal = use_goal
         self.use_goal_at_test = use_goal_at_test
@@ -62,6 +69,7 @@ class DiffusionPlanner(nn.Module):
             torch.tensor(gripper_loc_bounds, dtype=torch.float32), persistent=False,
         )
         self.prediction_head = DiffusionHead(
+            backbone=backbone,
             image_size=image_size,
             embedding_dim=embedding_dim,
             output_dim=self.internal_dim,
@@ -69,6 +77,8 @@ class DiffusionPlanner(nn.Module):
             num_query_cross_attn_layers=num_query_cross_attn_layers,
             use_instruction=use_instruction,
             use_goal=use_goal,
+            feat_scales_to_use=feat_scales_to_use,
+            attn_rounds=attn_rounds,
         )
         self.to(dev)
         self.pos_schedule = make_ddpm_schedule("scaled_linear", diffusion_timesteps, device=dev)
@@ -84,14 +94,18 @@ class DiffusionPlanner(nn.Module):
         return (pos + 1.0) / 2.0 * (hi - lo) + lo
 
     def convert_rot(self, signal):
-        """(..., 3+4[+k]) pose with quaternion -> (..., 3+6[+k]) with 6D."""
-        rot = R.quaternion_to_matrix(R.normalise_quat(signal[..., 3:7]))
-        return torch.cat(
-            [signal[..., :3], R.ortho6d_from_rotation_matrix(rot), signal[..., 7:]], dim=-1
-        )
+        """(..., 3+4[+k]) pose with quaternion -> (..., 3+6[+k]) with 6D, or
+        with the normalised quaternion (non-6D)."""
+        quat = R.normalise_quat(signal[..., 3:7])
+        if self.rotation_parametrization != "6D":
+            return torch.cat([signal[..., :3], quat, signal[..., 7:]], dim=-1)
+        rot = R.ortho6d_from_rotation_matrix(R.quaternion_to_matrix(quat))
+        return torch.cat([signal[..., :3], rot, signal[..., 7:]], dim=-1)
 
     def unconvert_rot(self, signal):
-        """(..., 3+6[+k]) -> (..., 3+4[+k])."""
+        """(..., 3+6[+k]) -> (..., 3+4[+k]); the identity when non-6D."""
+        if self.rotation_parametrization != "6D":
+            return signal
         quat = R.matrix_to_quaternion(R.rotation_matrix_from_ortho6d(signal[..., 3:9]))
         return torch.cat([signal[..., :3], quat, signal[..., 9:]], dim=-1)
 
@@ -134,7 +148,7 @@ class DiffusionPlanner(nn.Module):
 
         Padded rows get the identity quaternion (a zero quaternion is
         singular under the 6D conversion) and are left out of the L1 means.
-        ``noise`` (B, L, 9) and ``timesteps`` (B,) are drawn from
+        ``noise`` (B, L, internal_dim) and ``timesteps`` (B,) are drawn from
         ``generator.device`` unless given (tests inject JAX's draws);
         ``generator`` also drives dropout in training mode.
         """
@@ -166,18 +180,21 @@ class DiffusionPlanner(nn.Module):
             goal if self.use_goal else None,
             instruction if self.use_instruction else None,
         )
-        pred = self.prediction_head.denoise(noisy, trajectory_mask, timesteps, context,
-                                            generators=generator)
+        preds = self.prediction_head.denoise(noisy, trajectory_mask, timesteps, context,
+                                             generators=generator)
 
         valid = (~trajectory_mask)[..., None].to(gt.dtype)
         n_valid = _batch_count(valid, generator).clamp_min(1.0)
-        pos_l1 = ((pred[..., :3] - gt[..., :3]).abs() * valid).sum() / (n_valid * 3.0)
-        rot_l1 = ((pred[..., 3:9] - gt[..., 3:9]).abs() * valid).sum() / (n_valid * 6.0)
-        return 100.0 * pos_l1 + 10.0 * rot_l1
+        total = 0.0
+        for pred in preds:
+            pos_l1 = ((pred[..., :3] - gt[..., :3]).abs() * valid).sum() / (n_valid * 3.0)
+            rot_l1 = ((pred[..., 3:9] - gt[..., 3:9]).abs() * valid).sum() / (n_valid * 6.0)
+            total = total + 100.0 * pos_l1 + 10.0 * rot_l1
+        return total
 
     def denoise_step(self, trajectory, trajectory_mask, timestep, context):
-        """One denoiser evaluation: the clean-sample prediction."""
-        return self.prediction_head.denoise(trajectory, trajectory_mask, timestep, context)
+        """One denoiser evaluation: the last block's clean-sample prediction."""
+        return self.prediction_head.denoise(trajectory, trajectory_mask, timestep, context)[-1]
 
 
 def _batch_count(valid: torch.Tensor, generator: Optional[Generators]) -> torch.Tensor:
@@ -210,8 +227,9 @@ def compute_trajectory(
 
     Noise comes from ``generator`` (a torch.Generator, or ``Generators``,
     which draw at the global batch: nn/dropout.py), or from ``noise = (init_noise
-    (B, L, 9), step_noises (T, B, L, 9))`` so a test can feed the exact
-    numbers of another implementation.
+    (B, L, D), step_noises (T, B, L, D))``, D = ``model.internal_dim``, so a
+    test can feed the exact numbers of another implementation.  Non-6D
+    quaternions are normalised after the last step, as in JAX.
     """
     b, length = trajectory_mask.shape
     d = model.internal_dim
@@ -252,6 +270,9 @@ def compute_trajectory(
         rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
         trajectory = torch.cat([pos, rot], dim=-1)
 
+    if model.rotation_parametrization != "6D":
+        trajectory = torch.cat([trajectory[..., :3], R.normalise_quat(trajectory[..., 3:7]),
+                                trajectory[..., 7:]], dim=-1)
     trajectory = model.unconvert_rot(trajectory)
     return torch.cat([model.unnormalize_pos(trajectory[..., :3]), trajectory[..., 3:]],
                      dim=-1)

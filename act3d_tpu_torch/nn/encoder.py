@@ -1,6 +1,9 @@
-"""Shared visual encoding: frozen CLIP trunk + FPN + token pyramids (PyTorch).
+"""Shared visual encoding: frozen trunk + FPN + token pyramids (PyTorch).
 
-Counterpart of ``act3d_tpu/nn/encoder.py``.  Convolutions run in NCHW
+Counterpart of ``act3d_tpu/nn/encoder.py``.  The trunk is CLIP's
+ModifiedResNet-50 (``backbone="clip"``, CLIP's normalisation) or the
+torchvision-style ResNet-50 (``backbone="resnet"``, ImageNet's); both are
+the submodule ``backbone``, as in the flax tree.  Convolutions run in NCHW
 with cameras folded into the batch; the outputs are in the JAX package's
 layout: (B, ncam * H_i * W_i, F) tokens in camera-major, row-major order,
 and the matching (B, ncam * H_i * W_i, 3) point-cloud levels, resized
@@ -17,7 +20,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .fpn import FeaturePyramidNetwork
-from .resnet import CLIP_MEAN, CLIP_STD, ClipModifiedResNet
+from .resnet import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, ClipModifiedResNet,
+                     TorchResNet50)
+
+_BACKBONES = {"clip": (ClipModifiedResNet, CLIP_MEAN, CLIP_STD),
+              "resnet": (TorchResNet50, IMAGENET_MEAN, IMAGENET_STD)}
 
 
 def pyramid_layout(image_size: Tuple[int, int]):
@@ -35,19 +42,20 @@ class VisualEncoder(nn.Module):
     (per-level tokens, per-level point clouds)."""
 
     def __init__(self, image_size=(256, 256), embedding_dim: int = 60,
-                 num_sampling_level: int = 3):
+                 num_sampling_level: int = 3, backbone: str = "clip"):
         super().__init__()
+        if backbone not in _BACKBONES:
+            raise ValueError(f"unknown backbone {backbone}")
+        trunk, mean, std = _BACKBONES[backbone]
         self.image_size = tuple(image_size)
         self.embedding_dim = embedding_dim
         self.num_sampling_level = num_sampling_level
-        self.backbone = ClipModifiedResNet()
+        self.backbone = trunk()
         self.feature_pyramid = FeaturePyramidNetwork(
             self.backbone.out_channels, embedding_dim
         )
-        self.register_buffer("rgb_mean", torch.tensor(CLIP_MEAN)[:, None, None],
-                             persistent=False)
-        self.register_buffer("rgb_std", torch.tensor(CLIP_STD)[:, None, None],
-                             persistent=False)
+        self.register_buffer("rgb_mean", torch.tensor(mean)[:, None, None], persistent=False)
+        self.register_buffer("rgb_std", torch.tensor(std)[:, None, None], persistent=False)
 
     def forward(self, rgb, pcd) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         b, ncam, _, h, w = rgb.shape

@@ -1,12 +1,11 @@
-"""Fine-context selection for Act3D (PyTorch).
+"""Nearest-point context selection and the token gather (PyTorch).
 
-Counterpart of ``act3d_tpu/ops/geometry.py::topk_nearest_context`` and
-``gather_tokens``.  Selection is exact top-k with JAX's order among ties
-(the JAX package's ``approx_topk`` is a TPU feature and is not carried
-over).  The token
-gather's backward is the row-scatter kernel of ``kernels/gather.py`` at
-every width: the TPU routing floor (``c >= 16``) and the
-``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
+Counterpart of ``act3d_tpu/ops/geometry.py::find_traj_nn``,
+``topk_nearest_context`` and ``gather_tokens``.  Exact selections keep
+JAX's order among equal distances (``lax.top_k``: the lower index first).
+The token gather's backward is the row-scatter kernel of
+``kernels/gather.py`` at every width: the TPU routing floor (``c >= 16``)
+and the ``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
 """
 
 from __future__ import annotations
@@ -15,19 +14,44 @@ import torch
 
 from ..kernels.gather import scatter_rows, scatter_rows_sorted
 
-__all__ = ["topk_nearest_context", "gather_tokens"]
+__all__ = ["find_traj_nn", "topk_nearest_context", "gather_tokens"]
 
 
-def topk_nearest_context(
-    anchor: torch.Tensor, point_cloud: torch.Tensor, k: int
-) -> torch.Tensor:
-    """Indices (B, k) of the k points of (B, P, 3) nearest each (B, 3)
-    anchor, nearest first, equal distances in index order, as
-    ``lax.top_k`` orders ties (``torch.topk`` promises no order among them).
-    Ties are common under bf16 training: points whose coordinates round to
-    the same bf16 values lie at the same distance."""
-    d2 = torch.sum((anchor[:, None, :] - point_cloud) ** 2, dim=-1)
+def _nearest(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, k) of the k smallest of (B, P) distances, nearest first,
+    equal distances in index order, as ``lax.top_k`` orders ties
+    (``torch.topk`` promises no order among them).  Ties are common under
+    bf16 training (points whose coordinates round to the same bf16 values
+    lie at the same distance) and among duplicate points; which of the
+    equal distances at the k-th place are kept changes the selected set."""
     return torch.sort(d2, dim=-1, stable=True).indices[:, :k]
+
+
+def find_traj_nn(trajectory: torch.Tensor, point_cloud: torch.Tensor,
+                 nn_per_step: int = 64) -> torch.Tensor:
+    """Indices (B, nn_per_step * L) of the cloud points (B, P, 3) nearest to
+    any point of the (B, L, 3) trajectory (distance to the nearest
+    trajectory point), nearest first, ties in index order.  The indices carry
+    no gradient, so the (B, L, P) distances are not kept for a backward."""
+    trajectory, point_cloud = trajectory.detach(), point_cloud.detach()
+    d2 = torch.sum((trajectory[:, :, None, :] - point_cloud[:, None, :, :]) ** 2, dim=-1)
+    return _nearest(torch.amin(d2, dim=1), nn_per_step * trajectory.shape[1])
+
+
+def topk_nearest_context(anchor: torch.Tensor, point_cloud: torch.Tensor, k: int,
+                         approx: bool = False) -> torch.Tensor:
+    """Indices (B, k) of the k points of (B, P, 3) nearest each (B, 3)
+    anchor, nearest first, ties in index order.
+
+    ``approx`` (JAX's ``approx_topk``: ``lax.approx_max_k``, recall ~0.95 on
+    the TPU, exact on the CPU): on the CPU the same exact selection; on the
+    card ``torch.topk(sorted=False)``, which keeps the exact set of the k
+    nearest except which of the points tied with the k-th distance are
+    kept, in no particular order (Act3D sorts the indices after)."""
+    d2 = torch.sum((anchor[:, None, :] - point_cloud) ** 2, dim=-1)
+    if approx and d2.is_cuda:
+        return torch.topk(d2, k, dim=-1, largest=False, sorted=False).indices
+    return _nearest(d2, k)
 
 
 class _GatherTokens(torch.autograd.Function):

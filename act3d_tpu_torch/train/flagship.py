@@ -57,7 +57,11 @@ def make_diffusion_model(
     diffusion_timesteps: int = 100,
     num_query_cross_attn_layers: int = 6,
     device="cuda",
+    **options,
 ) -> DiffusionPlanner:
+    """``options``: the model options of the trajectory CLI (``backbone``,
+    ``feat_scales_to_use``, ``attn_rounds``, ``rotation_parametrization``),
+    passed to the constructor."""
     return DiffusionPlanner(
         image_size=image_size,
         embedding_dim=embedding_dim,
@@ -66,10 +70,10 @@ def make_diffusion_model(
         use_instruction=use_instruction,
         use_goal=use_goal,
         use_goal_at_test=False,  # chained mode: the goal comes from Act3D
-        rotation_parametrization="6D",
         diffusion_timesteps=diffusion_timesteps,
         gripper_loc_bounds=tuple(map(tuple, gripper_loc_bounds)),
         device=device,
+        **{"rotation_parametrization": "6D", **options},
     )
 
 
@@ -207,7 +211,11 @@ def make_keypose_model(
     num_sampling_level: int = 3,
     use_instruction: bool = True,
     device="cuda",
+    **options,
 ) -> Act3D:
+    """``options``: the model options of the keypose CLI (``backbone``,
+    ``rotation_parametrization``, ``weight_tying``, ``gp_emb_tying``,
+    ``approx_topk``), passed to the constructor."""
     return Act3D(
         image_size=image_size,
         embedding_dim=embedding_dim,
@@ -218,6 +226,7 @@ def make_keypose_model(
         num_sampling_level=num_sampling_level,
         use_instruction=use_instruction,
         device=device,
+        **options,
     )
 
 

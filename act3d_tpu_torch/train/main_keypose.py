@@ -68,18 +68,23 @@ def main(argv=None):
 
     torch.manual_seed(cfg.seed)
     model = Act3D(
+        backbone=cfg.backbone,
         image_size=cfg.image_size_tuple,
         embedding_dim=cfg.embedding_dim,
         num_ghost_point_cross_attn_layers=cfg.num_ghost_point_cross_attn_layers,
         num_query_cross_attn_layers=cfg.num_query_cross_attn_layers,
         num_vis_ins_attn_layers=cfg.num_vis_ins_attn_layers,
+        rotation_parametrization=cfg.rotation_parametrization,
         gripper_loc_bounds=tuple(map(tuple, bounds)),
         num_ghost_points=cfg.num_ghost_points,
         num_ghost_points_val=cfg.num_ghost_points_val,
+        weight_tying=bool(cfg.weight_tying),
+        gp_emb_tying=bool(cfg.gp_emb_tying),
         num_sampling_level=cfg.num_sampling_level,
         fine_sampling_ball_diameter=cfg.fine_sampling_ball_diameter,
         regress_position_offset=bool(cfg.regress_position_offset),
         use_instruction=bool(cfg.use_instruction),
+        approx_topk=bool(cfg.approx_topk),
         device=dev,
     )
     if rank == 0:

@@ -75,6 +75,7 @@ def main(argv=None):
 
     torch.manual_seed(cfg.seed)
     model = DiffusionPlanner(
+        backbone=cfg.backbone,
         image_size=cfg.image_size_tuple,
         embedding_dim=cfg.embedding_dim,
         output_dim=cfg.action_dim,
@@ -83,6 +84,8 @@ def main(argv=None):
         use_instruction=bool(cfg.use_instruction),
         use_goal=bool(cfg.use_goal),
         use_goal_at_test=bool(cfg.use_goal_at_test),
+        feat_scales_to_use=cfg.feat_scales_to_use,
+        attn_rounds=cfg.attn_rounds,
         rotation_parametrization=cfg.rotation_parametrization,
         diffusion_timesteps=cfg.diffusion_timesteps,
         gripper_loc_bounds=tuple(map(tuple, bounds)),

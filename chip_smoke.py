@@ -97,13 +97,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      100 steps, dense interpolation to 50, goal, instructions),
      --train_iters 4 --val_freq 4: 19 + 19 launches per training step, one
      evaluation with the 100-step sampler at batch 4; resumes at step 4.
+ 15b. the model options of both CLIs (after 15), at the scripts' flags plus
+     JAX's option flags: kernels_options (after 6: #1d / #2 at the sites
+     the 3-scale x 2-round head adds, B=16, E=120, H=8: the scale-1 and
+     scale-2 cross sites L=50 over S=3202 / 802, with and without a padded
+     mask, and vl_attention at L=3200 / 800 over 53; phase 6's tolerances,
+     device times beside both bounds and SDPA); cli_trajectory_options
+     (--feat_scales_to_use 3 --attn_rounds 2 --backbone resnet, 3 steps
+     and one evaluation with the 100-step sampler, then a resume: 114 + 114
+     launches a step, none of the row scatters); cli_trajectory_quat (the
+     same with --rotation_parametrization quat, 2 steps); cli_keypose_options
+     (--weight_tying 0 --gp_emb_tying 0 --rotation_parametrization
+     6D_from_top_ghost --approx_topk 1, 4 steps and one evaluation: 18 + 18
+     + 2 launches a step, a zero gradient on the six rotation rows of
+     gripper_state_fc2 in every backward (6D has no rotation loss, as in
+     JAX), and the card's approximate fine-context selection equal to the
+     exact set but for points at the k-th distance, with both selections'
+     device times).
  16. cli_eval: an Act3D and a DiffusionPlanner at act3d_tpu/eval/main.py's
      default widths (the serve phase's), seeded weights saved by
-     Trainer.save_checkpoint as best.pt, then act3d_tpu_torch.eval.main.main
-     over the sim-free backend (--fake_sim 1 --tasks pick_and_lift
-     --num_demos 1 --max_steps 3 --record_videos 0, every other flag its
-     default): 1918 fused_mha_fwd launches and no other kernel in each
-     keystep, the success-rate JSON in JAX's layout; then --offline 1
+     Trainer.save_checkpoint as best.pt and, by flax_params + msgpack_bytes
+     (the flax bridge inverted, flax's msgpack layout), as the JAX
+     Trainer's best.msgpack; then act3d_tpu_torch.eval.main.main over the
+     sim-free backend (--fake_sim 1 --tasks pick_and_lift --num_demos 1
+     --max_steps 3 --record_videos 0, every other flag its default): 1918
+     fused_mha_fwd launches and no other kernel in each keystep, the
+     success-rate JSON in JAX's layout; the same over the .msgpack files,
+     every keystep's output bit for bit the .pt run's; then --offline 1
      --predict_traj 0 (18 launches a keystep, Act3D alone) must score on
      every demo.  Prints each keystep's host-clock latency (Act3D /
      sampler) and the phase's peak memory.
@@ -185,7 +205,7 @@ Data parallelism (--num_devices / --fsdp) adds:
 Then the samplers' fork server and resource tracker are stopped (they
 would outlive the script by seconds), and the script fails if any process
 it started is left.
-Every main-path phase (serve, train, train_act3d, the five CLIs, dp_equal
+Every main-path phase (serve, train, train_act3d, the eight CLIs, dp_equal
 and cli_dp) runs with all launch counts set to 0 just before it and read
 just after; the launches of dp_equal's and cli_dp's child processes,
 counted by each child's wrappers, are added to their phase.
@@ -445,6 +465,49 @@ KEYPOSE_SHAPES = [
     ("keypose.ghost_point", 333, 3126, None, 0.0, 6),
     ("keypose.query", 1, 3126, None, 0.0, 6),
 ]
+
+# The model options of both CLIs (JAX's option flags on top of the scripts'
+# flags): the ChainedDiffuser head over 3 feature scales x 2 attention
+# rounds (6 blocks of 19 attention sites) on the ResNet-50 trunk, then
+# quaternion rotations; Act3D with untied levels, the rotation read from the
+# top ghost point as ortho-6D, and approximate top-k.
+OPTION_SCALES, OPTION_ROUNDS = 3, 2
+OPTION_BLOCKS = OPTION_SCALES * OPTION_ROUNDS
+TRAJECTORY_OPTION_FLAGS = ["--feat_scales_to_use", str(OPTION_SCALES), "--attn_rounds",
+                           str(OPTION_ROUNDS), "--backbone", "resnet"]
+TRAJECTORY_QUAT_FLAGS = TRAJECTORY_OPTION_FLAGS + ["--rotation_parametrization", "quat"]
+KEYPOSE_OPTION_FLAGS = ["--weight_tying", "0", "--gp_emb_tying", "0",
+                        "--rotation_parametrization", "6D_from_top_ghost", "--approx_topk", "1"]
+# (site, L, S, mask kind, dropout rate, launches per step of the 6-block
+# head); B = 16, E = 120, H = 8.  Blocks at scales 1 and 2 attend to the
+# 64 * 50 and 16 * 50 trajectory-nearest points of the 128^2 res1 level
+# (find_traj_nn), plus the current and goal gripper tokens; their
+# vl_attention runs from those points to the 53 instruction tokens.  Their
+# traj_lang (50 x 53) and self (50 x 50) sites are TRAIN_SHAPES' shapes.
+OPTION_SHAPES = [
+    ("options.vl_scale1", 64 * TRAJ_LEN, 53, None, DROPOUT, 2 * OPTION_ROUNDS),
+    ("options.vl_scale2", 16 * TRAJ_LEN, 53, None, DROPOUT, 2 * OPTION_ROUNDS),
+    ("options.cross_scale1", TRAJ_LEN, 64 * TRAJ_LEN + 2, None, DROPOUT, 8 * OPTION_ROUNDS),
+    ("options.cross_scale2", TRAJ_LEN, 16 * TRAJ_LEN + 2, None, DROPOUT, 8 * OPTION_ROUNDS),
+    ("check.options_cross_scale1_padded", TRAJ_LEN, 64 * TRAJ_LEN + 2, "padded", DROPOUT, 0),
+    ("check.options_cross_scale2_padded", TRAJ_LEN, 16 * TRAJ_LEN + 2, "padded", DROPOUT, 0),
+]
+# launches per step of TRAIN_SHAPES' sites in the 6-block head, per launch
+# of the one-block step: vl and cross at scale 0 only, traj_lang and self in
+# every block
+OPTION_SCALE0_BLOCKS = {"train.vl": OPTION_ROUNDS, "train.cross": OPTION_ROUNDS,
+                        "train.traj_lang": OPTION_BLOCKS, "train.self": OPTION_BLOCKS}
+
+
+def options_step_pairs(train_rows, option_rows):
+    """(shape row, launches per step) of the 6-block head's training step:
+    TRAIN_SHAPES' sites at their counts in the 6 blocks, and the scale-1 /
+    scale-2 sites of OPTION_SHAPES."""
+    pairs = [(r, r["per_step"] * OPTION_SCALE0_BLOCKS[r["site"]]) for r in train_rows
+             if r["site"] in OPTION_SCALE0_BLOCKS]
+    pairs += [(r, r["per_step"]) for r in option_rows if r["per_step"]]
+    assert sum(n for _, n in pairs) == OPTION_BLOCKS * 19, pairs
+    return pairs
 
 
 def nvidia_smi(query="name,power.limit") -> str:
@@ -1642,12 +1705,150 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
 
 
 @contextlib.contextmanager
+def keypose_option_probes():
+    """Records, inside the block, the largest |gradient| of the six rotation
+    rows of Act3D's gripper_state_fc2 (weight and bias) in every backward
+    of a Trainer.step (device tensors, read after the phase), and the first
+    fine-context selection made with gradients on (a training step's):
+    its anchor, cloud, k, the indices it returned and its approx flag."""
+    from act3d_tpu_torch.models import act3d as act3d_module
+
+    probes = dict(rotation_grads=[], selection=None)
+    step, select = Trainer.step, act3d_module.topk_nearest_context
+    hooked = set()
+
+    def recorded(self, batch):
+        fc2 = self.model.gripper_state_fc2
+        if id(fc2) not in hooked:
+            hooked.add(id(fc2))
+            for param in (fc2.weight, fc2.bias):
+                param.register_hook(
+                    lambda g: probes["rotation_grads"].append(g[:6].abs().max().detach()))
+        return step(self, batch)
+
+    def selecting(anchor, cloud, k, approx=False):
+        idx = select(anchor, cloud, k, approx=approx)
+        if probes["selection"] is None and torch.is_grad_enabled():
+            probes["selection"] = (anchor.detach().clone(), cloud.detach().clone(), k,
+                                   idx.clone(), approx)
+        return idx
+
+    Trainer.step, act3d_module.topk_nearest_context = recorded, selecting
+    try:
+        yield probes
+    finally:
+        Trainer.step, act3d_module.topk_nearest_context = step, select
+
+
+def check_approx_selection(selection, card):
+    """The card's approximate top-k (torch.topk, sorted=False) against the
+    exact selection of the same call's anchor and cloud: the same number of
+    unique indices, and every index in one set but not the other lies at
+    exactly the k-th distance (ties at the boundary).  Device times of both
+    selections at this shape."""
+    anchor, cloud, k, idx, approx = selection
+    assert approx, "the CLI did not select with approx_topk"
+    exact = topk_nearest_context(anchor, cloud, k)
+    d2 = torch.sum((anchor[:, None, :] - cloud) ** 2, dim=-1)
+    kth = d2.gather(1, exact[:, -1:])
+    picked = torch.zeros_like(d2, dtype=torch.bool).scatter_(1, idx, True)
+    wanted = torch.zeros_like(d2, dtype=torch.bool).scatter_(1, exact, True)
+    differ = picked ^ wanted
+    assert (picked.sum(1) == k).all(), "approx indices are not unique"
+    assert (d2[differ] == kth.expand_as(d2)[differ]).all(), "approx left out a nearer point"
+    side = torch.cuda.Stream()
+    approx_ms = device_ms(lambda: topk_nearest_context(anchor, cloud, k, approx=True), 20, side)
+    exact_ms = device_ms(lambda: topk_nearest_context(anchor, cloud, k), 20, side)
+    ties = int((d2 == kth).sum())
+    swapped = int(differ.sum()) // 2
+    print(f"cli_keypose_options approx top-k: B={d2.shape[0]} P={d2.shape[1]} k={k}; "
+          f"{swapped} index(es) swapped against the exact set, all at the k-th distance "
+          f"({ties} point(s) there); selection {approx_ms:.4f} ms approx vs {exact_ms:.4f} ms "
+          f"exact (stable sort) | {card}", flush=True)
+    return dict(B=d2.shape[0], P=d2.shape[1], k=k, swapped=swapped, ties_at_kth=ties,
+                approx_ms=approx_ms, exact_ms=exact_ms)
+
+
+_PROJ = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+
+def flax_params(state_dict) -> dict:
+    """The flax ``params`` tree of a port state dict, the inverse of
+    act3d_tpu_torch/convert.py's flax bridge: Dense (out, in) -> kernel
+    (in, out), Conv OIHW -> HWIO, ``{q,k,v,out}_proj`` -> ``{q,k,v,out}_kernel``
+    / ``_bias``, LayerNorm / frozen BN ``weight`` -> ``scale``,
+    ``running_mean`` / ``running_var`` -> ``mean`` / ``var``."""
+    tree = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        a = value.detach().cpu().float().numpy()
+        if path and path[-1] in _PROJ:
+            proj = path.pop()[:-len("_proj")]
+            leaf = f"{proj}_kernel" if leaf == "weight" else f"{proj}_bias"
+            a = a.T if a.ndim == 2 else a
+        elif leaf == "weight":
+            leaf = "kernel" if a.ndim in (2, 4) else "scale"
+            a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+        elif leaf in ("running_mean", "running_var"):
+            leaf = leaf[len("running_"):]
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def _msgpack_len(n: int, fix: int, fix_max: int, wide: tuple) -> bytes:
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    first of ``wide`` ((type byte, width), ...) that holds ``n``."""
+    if n < fix_max:
+        return bytes([fix | n])
+    for code, width in wide:
+        if n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, "big")
+    raise ValueError(n)
+
+
+def msgpack_bytes(obj) -> bytes:
+    """flax's msgpack_serialize encoding of a tree of dicts (str keys),
+    lists, str, bytes, ints and numpy arrays; an array is flax's extension
+    type 1: msgpack (shape, dtype name, C-order bytes)."""
+    if isinstance(obj, dict):
+        return _msgpack_len(len(obj), 0x80, 16, ((0xDE, 2), (0xDF, 4))) + b"".join(
+            msgpack_bytes(k) + msgpack_bytes(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return _msgpack_len(len(obj), 0x90, 16, ((0xDC, 2), (0xDD, 4))) + b"".join(
+            msgpack_bytes(v) for v in obj)
+    if isinstance(obj, str):
+        data = obj.encode()
+        return _msgpack_len(len(data), 0xA0, 32, ((0xD9, 1), (0xDA, 2), (0xDB, 4))) + data
+    if isinstance(obj, bytes):
+        return _msgpack_len(len(obj), 0, 0, ((0xC4, 1), (0xC5, 2), (0xC6, 4))) + obj
+    if isinstance(obj, (int, np.integer)):
+        return bytes([obj]) if 0 <= obj < 128 else b"\xd3" + int(obj).to_bytes(8, "big",
+                                                                                  signed=True)
+    if isinstance(obj, np.ndarray):
+        data = msgpack_bytes([list(obj.shape), obj.dtype.name,
+                              np.ascontiguousarray(obj).tobytes()])
+        return _msgpack_len(len(data), 0, 0, ((0xC7, 1), (0xC8, 2), (0xC9, 4))) + b"\x01" + data
+    raise TypeError(type(obj))
+
+
+class _Records(list):
+    def __init__(self):
+        super().__init__()
+        self.outputs = []
+
+
+@contextlib.contextmanager
 def recorded_keysteps():
     """Records, for every Actioner.predict run inside the block, its
     host-clock seconds, the Act3D and sampler seconds (predict's own
     ``timed`` marks, which synchronize the device) and the launches of each
-    kernel (in KERNELS order) that the keystep made."""
-    records, predict = [], Actioner.predict
+    kernel (in KERNELS order) that the keystep made; its output goes to the
+    list ``records.outputs``."""
+    records, predict = _Records(), Actioner.predict
+    outputs = records.outputs
 
     def recorded(self, *args, **kwargs):
         start = launch_counts()
@@ -1657,6 +1858,7 @@ def recorded_keysteps():
             seconds=time.perf_counter() - t0, act3d_s=self.last_phase_seconds["act3d"],
             sampler_s=self.last_phase_seconds["sampler"],
             launches=tuple(a - b for a, b in zip(launch_counts(), start))))
+        outputs.append(out)
         return out
 
     Actioner.predict = recorded
@@ -1689,12 +1891,15 @@ def phase_cli_eval(card):
         for name, model in (("act3d", Act3D(**ACT3D_CFG, device="cpu")),
                             ("planner", DiffusionPlanner(**PLANNER_CFG, device="cpu"))):
             Trainer(None, model).save_checkpoint(tmp / name)
+            # the same weights in the JAX Trainer's .msgpack layout
+            (tmp / name / "best.msgpack").write_bytes(msgpack_bytes(
+                {"params": flax_params(model.state_dict()), "step": 0}))
         save_s = time.perf_counter() - t0
 
-        def run(output, *extra):
+        def run(output, *extra, suffix=".pt"):
             argv = ["--data_dir", str(tmp), "--instructions", str(ipath),
-                    "--keypose_ckpt", str(tmp / "act3d" / "best.pt"),
-                    "--traj_ckpt", str(tmp / "planner" / "best.pt"),
+                    "--keypose_ckpt", str(tmp / "act3d" / f"best{suffix}"),
+                    "--traj_ckpt", str(tmp / "planner" / f"best{suffix}"),
                     "--output", str(tmp / output), "--log_dir", str(tmp / "logs"),
                     *EVAL_CLI_FLAGS, *extra]
             t0 = time.perf_counter()
@@ -1721,6 +1926,17 @@ def phase_cli_eval(card):
                   f"{k['act3d_s'] * 1e3:.1f} ms, sampler {k['sampler_s'] * 1e3:.1f} ms); "
                   f"launches {nonzero(k['launches'])} | {card}", flush=True)
         assert all(k["launches"] == full for k in keysteps), keysteps
+        # the same weights from the .msgpack files: every keystep's output
+        # bit for bit the .pt run's (the eval CLI seeds its draws alike)
+        msgpack_rates, msgpack_keysteps, msgpack_s = run("eval_msgpack.json", suffix=".msgpack")
+        assert msgpack_rates == rates, (msgpack_rates, rates)
+        assert all(k["launches"] == full for k in msgpack_keysteps), msgpack_keysteps
+        for a, b in zip(keysteps.outputs, msgpack_keysteps.outputs):
+            assert a.keys() == b.keys() and all(
+                (a[k] is None and b[k] is None) or np.array_equal(a[k], b[k]) for k in a), (a, b)
+        print(f"cli_eval from best.msgpack (the JAX Trainer's layout): {len(msgpack_keysteps)} "
+              f"keysteps bit-identical to best.pt's, rates {msgpack_rates}, whole run "
+              f"{msgpack_s:.1f} s | {card}", flush=True)
         offline_rates, offline_keysteps, offline_s = run(
             "eval_offline.json", "--offline", "1", "--predict_traj", "0")
         for i, k in enumerate(offline_keysteps):
@@ -1733,10 +1949,11 @@ def phase_cli_eval(card):
           f"peak memory {peak / 2**20:.1f} MiB (allocated before the CLI started "
           f"{resident / 2**20:.1f} MiB); whole run {seconds:.1f} s, offline run "
           f"{offline_s:.1f} s, checkpoints written in {save_s:.1f} s | {card}", flush=True)
-    return dict(rates=rates, offline_rates=offline_rates, keysteps=keysteps,
-                offline_keysteps=offline_keysteps, peak_memory_bytes=peak,
+    return dict(rates=rates, offline_rates=offline_rates, keysteps=list(keysteps),
+                offline_keysteps=list(offline_keysteps), peak_memory_bytes=peak,
                 resident_memory_bytes=resident, seconds=seconds,
-                offline_seconds=offline_s, launches_per_keystep=expected)
+                offline_seconds=offline_s, launches_per_keystep=expected,
+                msgpack_keysteps=list(msgpack_keysteps), msgpack_seconds=msgpack_s)
 
 
 class _ScriptedRng:
@@ -2639,6 +2856,8 @@ def main() -> int:
     kp_fwd_rows, kp_bwd_rows = phase_train_kernels(
         dev, card, KEYPOSE_SHAPES, ACT3D_CFG["embedding_dim"], ACT3D_CFG["num_attn_heads"],
         SEED + 2, sm_mhz)
+    opt_fwd_rows, opt_bwd_rows = phase_train_kernels(
+        dev, card, OPTION_SHAPES, PLANNER_CFG["embedding_dim"], 8, SEED + 5, sm_mhz)
     print_plans(rows, train_fwd_rows, train_bwd_rows, kp_fwd_rows, kp_bwd_rows)
     gather_rows = phase_gather_kernels(dev, card)
     core_rows = phase_attention_core(dev, card, sm_mhz)
@@ -2662,6 +2881,25 @@ def main() -> int:
     cli_traj = drive("cli_trajectory", phase_cli, dev, card, "cli_trajectory",
                      main_trajectory.main, TRAJECTORY_CLI_FLAGS, 4, 4, per_step_traj,
                      "traj_action_mse")
+    per_step_options = per_unit_launches(fused_mha_fwd=19 * OPTION_BLOCKS,
+                                         fused_mha_bwd=19 * OPTION_BLOCKS)
+    cli_traj_opt = drive("cli_trajectory_options", phase_cli, dev, card,
+                         "cli_trajectory_options", main_trajectory.main,
+                         TRAJECTORY_CLI_FLAGS + TRAJECTORY_OPTION_FLAGS, 3, 3, per_step_options,
+                         "traj_action_mse")
+    cli_traj_quat = drive("cli_trajectory_quat", phase_cli, dev, card, "cli_trajectory_quat",
+                          main_trajectory.main, TRAJECTORY_CLI_FLAGS + TRAJECTORY_QUAT_FLAGS,
+                          2, 2, per_step_options, "traj_action_mse")
+    with keypose_option_probes() as probes:
+        cli_kp_opt = drive("cli_keypose_options", phase_cli, dev, card, "cli_keypose_options",
+                           main_keypose.main, KEYPOSE_CLI_FLAGS + KEYPOSE_OPTION_FLAGS, 4, 4,
+                           per_step_kp, "mean/pos_l2_final")
+    rotation_grad = max(float(g) for g in probes["rotation_grads"])
+    print(f"cli_keypose_options: 6D_from_top_ghost computes no rotation loss (as JAX): the "
+          f"six rotation rows of gripper_state_fc2 got gradient max |g| {rotation_grad} in "
+          f"{len(probes['rotation_grads']) // 2} backward(s)", flush=True)
+    assert rotation_grad == 0.0 and len(probes["rotation_grads"]) >= 2 * 5, probes
+    cli_kp_opt["approx_topk"] = check_approx_selection(probes["selection"], card)
     cli_eval = drive("cli_eval", phase_cli_eval, card)
     host = phase_host_path(dev, card)
     workers = host_workers()
@@ -2733,13 +2971,18 @@ def main() -> int:
         return out
 
     fwd_total, bwd_total = total(serve, train, kp_fwd), total(bwd, kp_bwd)
+    options = {name: {k: sum(r[k] * n for r, n in options_step_pairs(t_rows, o_rows))
+                      for k in mha_keys}
+               for name, t_rows, o_rows in (("fwd", train_fwd_rows, opt_fwd_rows),
+                                            ("bwd", train_bwd_rows, opt_bwd_rows))}
     kernels = [{
         "name": "fused_mha_fwd",
         "route": "cuda",
         "source": "act3d_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:212",
         "launches": launches["fused_mha_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows + kp_fwd_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + train_fwd_rows + kp_fwd_rows
+                           + opt_fwd_rows),
         **{k: fwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
                                      "tc_bound_ms")},
         "per": "one serving keystep plus one ChainedDiffuser training step plus one Act3D "
@@ -2748,7 +2991,9 @@ def main() -> int:
         "serve": dict(serve, launches=serve_launches, keysteps=latencies, **memory),
         "train": dict(train, launches=train_fwd),
         "keypose_train": dict(kp_fwd, launches=kp_launches[0]),
-        "shapes": rows + train_fwd_rows + kp_fwd_rows,
+        "options_train": dict(options["fwd"], launches_per_step=19 * OPTION_BLOCKS,
+                              per="one training step of the 3-scale x 2-round head"),
+        "shapes": rows + train_fwd_rows + kp_fwd_rows + opt_fwd_rows,
         "card": card,
     }, {
         "name": "fused_mha_bwd",
@@ -2756,7 +3001,8 @@ def main() -> int:
         "source": "act3d_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "act3d_tpu/kernels/attention.py:289",
         "launches": launches["fused_mha_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows + kp_bwd_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in train_bwd_rows + kp_bwd_rows
+                           + opt_bwd_rows),
         **{k: bwd_total[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
                                      "tc_bound_ms")},
         "per": "one ChainedDiffuser training step plus one Act3D training step: sum over "
@@ -2764,7 +3010,9 @@ def main() -> int:
                "SDPA's forward + backward minus its forward",
         "train": dict(bwd, launches=train_bwd, train_steps=train_steps, **train_memory),
         "keypose_train": dict(kp_bwd, launches=kp_launches[1]),
-        "shapes": train_bwd_rows + kp_bwd_rows,
+        "options_train": dict(options["bwd"], launches_per_step=19 * OPTION_BLOCKS,
+                              per="one training step of the 3-scale x 2-round head"),
+        "shapes": train_bwd_rows + kp_bwd_rows + opt_bwd_rows,
         "card": card,
     }]
     for name, source, replaces, per_step in (
@@ -2858,6 +3106,8 @@ def main() -> int:
         kernel["main_path_launches"] = {phase: c[kernel["name"]]
                                         for phase, c in main_path.items()}
     kernels[0].update(cli_keypose=cli_kp, cli_trajectory=cli_traj, cli_eval=cli_eval,
+                      cli_trajectory_options=cli_traj_opt, cli_trajectory_quat=cli_traj_quat,
+                      cli_keypose_options=cli_kp_opt,
                       cli_keypose_host_path=dict(cli_kp_hp, workers=workers),
                       cli_trajectory_host_path=dict(cli_traj_hp, workers=workers),
                       host_path=host, dp_equal=dp_equal, cli_dp=cli_dp,

@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port.
 
 * ``act3d_tpu_torch`` (every submodule) and ``chip_smoke.py`` import with
-  ``jax`` made unimportable, and load nothing of ``act3d_tpu``; the eval
+  ``jax``, ``flax`` and ``msgpack`` made unimportable (the ``.msgpack``
+  reader, ``core/msgpack.py``, is the port's own), and load nothing of
+  ``act3d_tpu``; the eval
   CLI and the RLBench loop also import without OpenCV, RLBench and PyRep,
   which the card's machine lacks; every module imports without matplotlib
   and tensorboard (the host path's viz and logger import them inside
@@ -27,11 +29,13 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["flax"] = None
+sys.modules["msgpack"] = None  # the .msgpack reader is the port's own
 import act3d_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(act3d_tpu_torch.__path__, "act3d_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+assert "act3d_tpu_torch.core.msgpack" in names
 leaked = sorted(m for m in sys.modules if m == "act3d_tpu" or m.startswith("act3d_tpu."))
 assert not leaked, leaked
 print(len(names), "modules")

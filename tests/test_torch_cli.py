@@ -11,8 +11,10 @@ each host-path flag (``--num_workers 2``, ``--device_augment``,
 ``--use_tensorboard``) and the two combinations chip_smoke runs train to a
 checkpoint with the batches that flag ships; ``--device_augment 1 --wire
 depth`` raises ValueError, as in JAX; ``--mixed_precision 1`` trains in
-bf16 to float32 checkpoints; ``NotImplementedError`` for each kind of
-flag the port does not have yet, and JAX's ValueError for ``--num_devices``
+bf16 to float32 checkpoints; each model option of JAX's CLIs
+(``--backbone resnet``, the rotation parametrizations, untied levels,
+``--approx_topk``, ``--feat_scales_to_use``, ``--attn_rounds``) trains to a
+checkpoint of the model it builds; JAX's ValueError for ``--num_devices``
 / ``--fsdp`` a single process cannot form a mesh of.  Without a card, the
 default device raises.  Nothing here imports JAX.
 """
@@ -233,21 +235,12 @@ def test_cli_trains_in_bf16_checkpoints_resumes_and_evaluates(common, steps_take
     assert metrics and all(math.isfinite(v) for v in metrics.values()) and len(casts) == 3
 
 
-# one flag of each kind the port rejects, with the CLI it is given to and
-# the error: NotImplementedError for what the port lacks, JAX's ValueError
-# for a mesh the one process cannot form (more devices than the launched
-# ranks, an fsdp that does not divide them; tests/test_torch_parallel.py
-# trains over several ranks)
+# JAX's ValueError for a mesh the one process cannot form (more devices
+# than the launched ranks, an fsdp that does not divide them;
+# tests/test_torch_parallel.py trains over several ranks)
 REJECTED = [
     ("keypose", ["--num_devices", "2"], "num_devices", ValueError),
     ("keypose", ["--fsdp", "2"], "fsdp", ValueError),
-    ("trajectory", ["--backbone", "resnet"], "backbone", NotImplementedError),
-    ("keypose", ["--rotation_parametrization", "6D"], "rotation_parametrization",
-     NotImplementedError),
-    ("keypose", ["--weight_tying", "0"], "weight_tying", NotImplementedError),
-    ("keypose", ["--approx_topk", "1"], "approx_topk", NotImplementedError),
-    ("trajectory", ["--feat_scales_to_use", "3"], "feat_scales_to_use", NotImplementedError),
-    ("trajectory", ["--attn_rounds", "2"], "attn_rounds", NotImplementedError),
 ]
 
 
@@ -257,6 +250,48 @@ def test_cli_rejects_what_the_port_lacks(tmp_path, name, flags, match, error):
     with pytest.raises(error, match=match):
         main.main(["--base_log_dir", str(tmp_path), "--device", "cpu", *flags])
     assert not any(tmp_path.iterdir())  # raised before writing anything
+
+
+# (id, CLI, flags, a state_dict entry of the model the flags build, its shape)
+# for each model option of JAX's CLIs
+MODEL_OPTIONS = [
+    ("backbone", "trajectory", ["--backbone", "resnet"],
+     "prediction_head.visual.backbone.conv1.weight", (64, 3, 7, 7)),
+    ("backbone_keypose", "keypose", ["--backbone", "resnet"],
+     "visual.backbone.layer1_0.downsample_conv.weight", (256, 64, 1, 1)),
+    ("rotation_parametrization", "keypose", ["--rotation_parametrization", "6D_from_top_ghost"],
+     "gripper_state_fc2.weight", (7, 12)),
+    ("rotation_parametrization_trajectory", "trajectory", ["--rotation_parametrization", "quat"],
+     "prediction_head.rot_regressor_0_fc2.weight", (4, 24)),
+    ("weight_tying", "keypose", ["--weight_tying", "0", "--gp_emb_tying", "0"],
+     "ghost_points_embed_2", (1, 12)),
+    ("approx_topk", "keypose", ["--approx_topk", "1"], "ghost_points_embed", (1, 12)),
+    ("feat_scales_to_use", "trajectory", ["--feat_scales_to_use", "3"],
+     "prediction_head.pos_attention_2.layer_0.cross_12.q_proj.weight", (24, 24)),
+    ("attn_rounds", "trajectory", ["--attn_rounds", "2", "--feat_scales_to_use", "2"],
+     "prediction_head.rot_regressor_3_fc1.weight", (24, 24)),
+]
+
+
+@pytest.mark.parametrize("case,name,flags,key,shape", MODEL_OPTIONS,
+                         ids=[c[0] for c in MODEL_OPTIONS])
+def test_cli_trains_with_each_model_option(common, steps_taken, case, name, flags, key, shape):
+    """Each model option JAX's CLIs take trains 2 steps on the CPU, evaluates
+    (the trajectory CLI through the sampler) and writes best.pt holding the
+    model the option builds."""
+    tmp, args = common
+    main, widths = CLIS[name]
+    out = main.main(args + widths + ["--run_log_dir", case, "--train_iters", "2", *flags])
+    assert [s for s, _ in steps_taken] == [0, 1]
+    assert all(math.isfinite(loss) for _, loss in steps_taken)
+    (evaluation,) = out["evals"]
+    assert all(math.isfinite(v) for v in evaluation["val"].values()), evaluation
+    log_dir = tmp / "logs" / "exp" / case
+    best = torch.load(log_dir / "best.pt", weights_only=True)["model"]
+    assert tuple(best[key].shape) == shape
+    hparams = json.loads((log_dir / "hparams.json").read_text())
+    for flag, value in zip(flags[::2], flags[1::2]):
+        assert str(hparams[flag[2:]]) == value, flag
 
 
 @pytest.mark.parametrize("name", sorted(CLIS))

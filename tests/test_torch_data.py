@@ -9,7 +9,7 @@
   JAX's, and the port's decoder reads blosclz itself (no libblosc
   fallback).
 * ``parse_config`` of both reference scripts' command lines gives JAX's
-  field values; rejected flags raise ``NotImplementedError``.
+  field values.
 * ``DeviceFeeder`` keeps batch order, re-raises a batch_fn error and stops
   on ``close()`` on the CPU; a gpu-marked test fills large batches with
   their own step number and checks each one on the card after its

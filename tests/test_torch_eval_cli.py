@@ -6,7 +6,9 @@ with 3 query layers and 2 diffusion steps.  With ``--offline 1
 --predict_traj 0`` the loop follows the demos' keyposes, so no random
 draw reaches the score: both CLIs, given the same reference-layout
 ``.pth`` files (JAX's CLI reads ``.pth`` or ``.msgpack``, not the port's
-``.pt``), must write the same rates and the same JSON.  The chained path
+``.pt``), must write the same rates and the same JSON, and so must the
+port's CLI over the ``.msgpack`` files JAX's Trainer writes of the same
+weights.  The chained path
 (Act3D keypose -> goal -> sampler) runs over ``.pt`` checkpoints written
 by the port's Trainer.
 
@@ -78,11 +80,21 @@ def tree(tmp_path_factory):
                         ("planner", DiffusionPlanner(**PLANNER_CFG, device="cpu"))):
         Trainer(None, model).save_checkpoint(root / name)
     offline = ["--offline", "1", "--predict_traj", "0"]
+    built = []
+    build_models = jax_main.build_models
     with pytest.MonkeyPatch.context() as patch:
         for cls in (jax_main.Act3D, jax_main.DiffusionPlanner):
             patch.setattr(cls, "init", _shape_only_init)
+        patch.setattr(jax_main, "build_models",
+                      lambda *a: built.append(build_models(*a)) or built[-1])
         jax_results = jax_main.main(_argv(root, root / "act3d.pth", root / "planner.pth",
                                           "jax.json", *offline))
+    # JAX's Trainer writes the weights JAX's CLI loaded as best.msgpack / last.msgpack
+    from act3d_tpu.train.engine import Trainer as JaxTrainer
+
+    (_, keypose_params, _, traj_params), = built
+    for name, params in (("act3d", keypose_params), ("planner", traj_params)):
+        JaxTrainer(None, params).save_checkpoint(root / f"jax_{name}")
     return root, offline, jax_results
 
 
@@ -106,10 +118,47 @@ def test_chained_policy_over_trainer_checkpoints(tree):
 
 
 def test_msgpack_checkpoints_are_not_ported(tree):
-    root, _, _ = tree
-    with pytest.raises(NotImplementedError, match=".msgpack"):
-        port_main.main(_argv(root, root / "act3d.msgpack", root / "planner" / "best.pt",
-                             "msgpack.json", "--device", "cpu"))
+    """``.msgpack`` loading is ported: the best.msgpack files JAX's Trainer
+    wrote from the weights JAX's CLI ran (payload params, opt_state, step;
+    best_loss None, stripped) load into the port's CLI, which scores them
+    as JAX's CLI did, with the same JSON; each model's weights equal the
+    same .pth file's through the port.  The reader is held against the
+    installed msgpack with flax's extension hook, over the whole payload."""
+    import msgpack
+    from flax import serialization
+
+    from act3d_tpu_torch.core.msgpack import load_msgpack
+
+    root, offline, jax_results = tree
+    keypose, traj = root / "jax_act3d" / "best.msgpack", root / "jax_planner" / "best.msgpack"
+    results = port_main.main(_argv(root, keypose, traj, "msgpack.json", *offline,
+                                   "--device", "cpu"))
+    assert results == jax_results
+    assert (root / "msgpack.json").read_text() == (root / "jax.json").read_text()
+
+    for path, model, pth, convert, flax_fn in (
+            (keypose, Act3D(**ACT3D_CFG, device="cpu"), root / "act3d.pth",
+             lambda sd: port_main.act3d_from_reference(sd, num_sampling_level=2),
+             port_main.act3d_from_flax),
+            (traj, DiffusionPlanner(**PLANNER_CFG, device="cpu"), root / "planner.pth",
+             lambda sd: port_main.diffusion_planner_from_reference(
+                 sd, num_query_cross_attn_layers=3), port_main.diffusion_planner_from_flax)):
+        from_msgpack = port_main.load_params(path, model, None, flax_fn).state_dict()
+        from_pth = port_main.load_params(pth, model, convert).state_dict()
+        assert from_msgpack.keys() == from_pth.keys()
+        assert all(torch.equal(from_msgpack[k], from_pth[k]) for k in from_pth)
+
+        payload = load_msgpack(path)
+        want = msgpack.unpackb(path.read_bytes(), raw=False,
+                               ext_hook=serialization._msgpack_ext_unpack)
+        assert sorted(payload) == sorted(want) == ["opt_state", "params", "step"]
+        assert payload["step"] == want["step"] == 0
+        got_leaves = jax.tree_util.tree_leaves_with_path(payload)
+        want_leaves = jax.tree_util.tree_leaves_with_path(want)
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (_, g), (_, w) in zip(got_leaves, want_leaves):
+            assert np.asarray(g).dtype == np.asarray(w).dtype
+            np.testing.assert_array_equal(g, w)
 
 
 def test_cli_without_a_card_raises_instead_of_using_the_cpu(tree):

@@ -162,16 +162,18 @@ def _local(t):
 
 
 # ---------------------------------------------------------- the two models
-def _model(kind, seed=0):
+def _model(kind, seed=0, **options):
+    """``options``: the model options of the kind's CLI (flagship.py)."""
     from act3d_tpu_torch.train.flagship import make_diffusion_model, make_keypose_model
 
     torch.manual_seed(seed)
     if kind == "diffusion":
         return make_diffusion_model(image_size=(64, 64), embedding_dim=24,
                                     num_query_cross_attn_layers=2, diffusion_timesteps=5,
-                                    device="cpu")
+                                    device="cpu", **options)
     return make_keypose_model(image_size=(128, 128), embedding_dim=24, num_ghost_points=48,
-                              num_ghost_points_val=48, num_sampling_level=2, device="cpu")
+                              num_ghost_points_val=48, num_sampling_level=2, device="cpu",
+                              **options)
 
 
 def _loss_fn(kind, model, compute_dtype):
@@ -183,16 +185,17 @@ def _loss_fn(kind, model, compute_dtype):
     return keypose_loss_fn(model, KeyposeLossAndMetrics(), compute_dtype)
 
 
-def model_run(rank, world, kind, fsdp, batch, steps, bf16=False):
+def model_run(rank, world, kind, fsdp, batch, steps, bf16=False, options=None):
     """Full gradients of one backward (then zeroed), then ``steps``
     Trainer steps: {"grads": {name: array}, "losses": [...]} with the
     losses averaged over the ranks (the global batch's).  ``batch``: numpy
-    arrays of the global batch; dropout is on (training mode)."""
+    arrays of the global batch; dropout is on (training mode);
+    ``options``: the model's CLI options."""
     from act3d_tpu_torch.parallel.mesh import batch_rows
     from act3d_tpu_torch.train.engine import Trainer
 
     dtype = torch.bfloat16 if bf16 else None
-    model = _model(kind)
+    model = _model(kind, **(options or {}))
     trainer = Trainer(_loss_fn(kind, model, dtype), model, lr=1e-3, seed=3,
                       mesh=_mesh(world, fsdp), compute_dtype=dtype)
     local = batch_rows(rank, world, {k: torch.from_numpy(v) for k, v in batch.items()})

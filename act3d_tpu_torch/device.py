@@ -7,6 +7,10 @@ import os
 import torch
 
 
+# PyTorch reads this once, at the first cuDNN convolution of the process
+CUDNN_HEURISTIC_MODE_B = "TORCH_CUDNN_USE_HEURISTIC_MODE_B"
+
+
 def pin_float32() -> None:
     """The port's precision policy on the card: float32 matmuls and cuDNN
     convolutions in full float32, never TF32 (about 10 mantissa bits), as
@@ -16,9 +20,19 @@ def pin_float32() -> None:
 
     Set through PyTorch's ``fp32_precision`` API only: mixing it with the
     legacy ``allow_tf32`` flags makes a later read of those raise, so the
-    port reads the policy back with :func:`float32_precision`."""
+    port reads the policy back with :func:`float32_precision`.
+
+    Without TF32, cuDNN's instant heuristics (PyTorch's default) put first
+    float32 engines whose workspaces take GiBs: 10 GiB for the FPN's 3x3
+    output convolution over 48 x 120 x 128^2 on an H100, the float32
+    training step's peak (scripts/conv_memory.py).  cuDNN's heuristic mode
+    B ranks the float32 engines otherwise (at most 2.4 GiB of workspace
+    there, still no TF32), so it is part of the policy; it must be set
+    before the process runs its first cuDNN convolution, as every entry
+    point does through :func:`resolve_device`."""
     torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.conv.fp32_precision = "ieee"
+    os.environ[CUDNN_HEURISTIC_MODE_B] = "1"
 
 
 def float32_precision() -> dict:

@@ -1,8 +1,9 @@
 """Nearest-point context selection and the token gather (PyTorch).
 
 Counterpart of ``act3d_tpu/ops/geometry.py::find_traj_nn``,
-``topk_nearest_context`` and ``gather_tokens``.  Exact selections keep
-JAX's order among equal distances (``lax.top_k``: the lower index first).
+``topk_nearest_context``, ``gather_tokens`` and ``find_cylinder_points``.
+Exact selections keep JAX's order among equal distances (``lax.top_k``:
+the lower index first).
 The token gather's backward is the row-scatter kernel of
 ``kernels/gather.py`` at every width: the TPU routing floor (``c >= 16``)
 and the ``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
@@ -14,7 +15,7 @@ import torch
 
 from ..kernels.gather import scatter_rows, scatter_rows_sorted
 
-__all__ = ["find_traj_nn", "topk_nearest_context", "gather_tokens"]
+__all__ = ["find_traj_nn", "topk_nearest_context", "gather_tokens", "find_cylinder_points"]
 
 
 def _nearest(d2: torch.Tensor, k: int) -> torch.Tensor:
@@ -84,3 +85,19 @@ def gather_tokens(x: torch.Tensor, idx: torch.Tensor, *,
     the backward takes the sorted kernel (Act3D sorts its fine-context
     picks)."""
     return _GatherTokens.apply(x, idx, sorted_indices)
+
+
+def find_cylinder_points(start: torch.Tensor, end: torch.Tensor, num_points: int,
+                         point_cloud: torch.Tensor) -> torch.Tensor:
+    """(B, P) bool mask of the cloud points (B, P, 3) within the 'cylinder'
+    around the segments start -> end (B, 3) (reference
+    model/utils/utils.py:7-35): the union of balls centred on
+    ``num_points`` samples of the segment, of radius the largest per-axis
+    extent of ``end - start``.  JAX's arithmetic: the (B, n, P) Euclidean
+    distances compared with ``<=``."""
+    size = torch.amax(torch.abs(end - start), dim=1)  # (B,)
+    ts = torch.arange(num_points, device=start.device, dtype=start.dtype)
+    slope = (end - start) / (num_points - 1)
+    line = start[:, None, :] + slope[:, None, :] * ts[None, :, None]  # (B, n, 3)
+    d = torch.sqrt(torch.sum((line[:, :, None, :] - point_cloud[:, None, :, :]) ** 2, dim=-1))
+    return torch.any(d <= size[:, None, None], dim=1)

@@ -16,9 +16,26 @@ from typing import Optional
 
 import torch
 
-__all__ = ["sample_uniform_cube", "sample_uniform_ball", "ghost_point_bounds"]
+__all__ = ["sample_uniform_cube", "sample_uniform_ball", "sample_grid", "ghost_point_bounds"]
 
 OVERSAMPLE = 4
+
+
+def sample_grid(bounds: torch.Tensor, num_points_per_dim: int = 10) -> torch.Tensor:
+    """Regular grid over a (2, 3) [min, max] box (reference
+    sample_ghost_points_grid, model/utils/utils.py:59-65): (N^3, 3) points
+    in x-major order, on the device and in the dtype of ``bounds``.  Each
+    axis is ``jnp.linspace``'s arithmetic: ``lo * (1 - s) + hi * s`` at
+    s = i / (N - 1), the last point ``hi`` itself."""
+    n = num_points_per_dim
+    lo, hi = bounds[0], bounds[1]
+    if n == 1:
+        axes = lo[None]
+    else:
+        step = (torch.arange(n - 1, device=bounds.device, dtype=bounds.dtype) / (n - 1))[:, None]
+        axes = torch.cat([lo * (1 - step) + hi * step, hi[None]])  # (N, 3)
+    x, y, z = torch.meshgrid(axes[:, 0], axes[:, 1], axes[:, 2], indexing="ij")
+    return torch.stack([x, y, z], dim=-1).reshape(-1, 3)
 
 
 def sample_uniform_cube(

@@ -8,8 +8,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: torch/CUDA versions, the card's name and power limit; the
      port's float32 policy (act3d_tpu_torch.device.pin_float32, applied by
      resolve_device as at every entry point: matmuls and cuDNN
-     convolutions in float32, no TF32), read back through the same
-     fp32_precision API.
+     convolutions in float32, no TF32, cuDNN's heuristic mode B), read back
+     through the same fp32_precision API and the environment.
   2. build: nvcc builds every CUDA source of the port for sm_90a (one nvcc
      per source, all started together); prints each kernel's ptxas report
      (registers, spills).
@@ -202,11 +202,30 @@ Data parallelism (--num_devices / --fsdp) adds:
      keysteps.  Also: the host batch of the trajectory CLI at world 1 and
      per rank of 2 (replayed draws), an elementwise dropout draw at world 1
      and 2.
+The preprocessing tools and the profiler add (after 15, where the float32
+peaks of phases 10 and 15 are printed and held to F32_PEAK_LIMITS_MIB):
+ 21. preprocess: over the keypose CLI's fixture tree, validate --deep (every
+     episode OK), compute_workspace_bounds (the JSON equal to a min/max of
+     the same episodes' positions computed here) and preprocess_instructions
+     with an injected seeded text encoder (byte tokens, an embedding and a
+     linear layer: (n, 53, 512)) that runs on the card, its features within
+     1e-5 of the same encoder on the CPU; then the keypose CLI at phase 14's
+     flags over that JSON and pkl, --train_iters 3 --val_freq 3 and a resume
+     (18 + 18 + 2 launches a step); then find_cylinder_points at B 16, a
+     cloud of 3 x 256^2 points, 50 line samples, on the card against the CPU
+     (masks equal but within 1e-5 of the radius) and sample_grid at 10 and
+     100 points per axis (within 1e-6).
+ 22. profile: phase 10's ChainedDiffuser at batch 16 takes 2 steps, then 3
+     steps ticked by train.profiling.StepTimer under profiling.trace; the
+     trace read back (profiling.kernel_times): the fused-MHA forward and
+     backward main kernels as many as the wrappers' calls (19 + 19 a step),
+     with the split combines and slab sums as many as the launch plans give;
+     a finite StepTimer summary over 2 measured steps.
 Then the samplers' fork server and resource tracker are stopped (they
 would outlive the script by seconds), and the script fails if any process
 it started is left.
-Every main-path phase (serve, train, train_act3d, the eight CLIs, dp_equal
-and cli_dp) runs with all launch counts set to 0 just before it and read
+Every main-path phase (serve, train, train_act3d, the eight CLIs, dp_equal,
+cli_dp, preprocess and profile) runs with all launch counts set to 0 just before it and read
 just after; the launches of dp_equal's and cli_dp's child processes,
 counted by each child's wrappers, are added to their phase.
 The second-to-last line is a JSON object of kernel numbers (six kernels
@@ -218,7 +237,9 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
+import io
 import json
 import os
 import pickle
@@ -227,6 +248,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -236,6 +258,7 @@ import torch.nn.functional as F
 from act3d_tpu_torch.data.augment import Resize
 from act3d_tpu_torch.data.compact import compact_batch, expand_batch
 from act3d_tpu_torch.data.dataset import RLBenchDataset
+from act3d_tpu_torch.data.episode import load_episode
 from act3d_tpu_torch.data.depthwire import gather_hw, reconstruct_pcds
 from act3d_tpu_torch.data.device_augment import resize_with_params
 from act3d_tpu_torch.data.feeder import DeviceFeeder, to_tensors
@@ -245,7 +268,7 @@ from act3d_tpu_torch.data.pipeline import (
     rlbench_dataset_factory,
     stop_helper_processes,
 )
-from act3d_tpu_torch.device import float32_precision, resolve_device
+from act3d_tpu_torch.device import CUDNN_HEURISTIC_MODE_B, float32_precision, resolve_device
 from act3d_tpu_torch.eval import main as eval_main
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.kernels import BWD_FLOOR, _build, bf16_errors
@@ -270,8 +293,11 @@ from act3d_tpu_torch.kernels.gather import (
 )
 from act3d_tpu_torch.models import Act3D, DiffusionPlanner
 from act3d_tpu_torch.nn.dropout import Generators
-from act3d_tpu_torch.ops.geometry import topk_nearest_context
-from act3d_tpu_torch.train import main_keypose, main_trajectory
+from act3d_tpu_torch.ops.geometry import find_cylinder_points, topk_nearest_context
+from act3d_tpu_torch.ops.sampling import sample_grid
+from act3d_tpu_torch.preprocessing import compute_workspace_bounds, preprocess_instructions
+from act3d_tpu_torch.preprocessing import validate as validate_episodes
+from act3d_tpu_torch.train import main_keypose, main_trajectory, profiling
 from act3d_tpu_torch.train.engine import Trainer
 from act3d_tpu_torch.train.flagship import (
     diffusion_loss,
@@ -1643,19 +1669,20 @@ def write_fixture_tree(root, n_episodes):
     return root / "data", ipath
 
 
-def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric):
+def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric, data=None):
     """One training CLI at its reference script's flags over a fixture
-    tree: ``iters`` steps with an evaluation every ``val_freq``; checks
-    finite losses, best.pt / last.pt, the kernel launches of every training
-    step and a finite ``metric`` in every evaluation; then the same command
-    line with one more step resumes from last.pt."""
+    tree (or over ``data`` = (tree, instructions.pkl, bounds JSON)):
+    ``iters`` steps with an evaluation every ``val_freq``; checks finite
+    losses, best.pt / last.pt, the kernel launches of every training step
+    and a finite ``metric`` in every evaluation; then the same command line
+    with one more step resumes from last.pt."""
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        tree, ipath = write_fixture_tree(tmp, CLI_EPISODES)
+        tree, ipath, bounds = data or (*write_fixture_tree(tmp, CLI_EPISODES), CLI_BOUNDS)
         write_s = time.perf_counter() - t0
         argv = ["--dataset", str(tree), "--valset", str(tree), "--instructions", str(ipath),
-                "--gripper_loc_bounds", str(CLI_BOUNDS), "--tasks", "pick_and_lift",
+                "--gripper_loc_bounds", str(bounds), "--tasks", "pick_and_lift",
                 "--base_log_dir", str(tmp / "logs"), "--run_log_dir", "smoke", *flags,
                 "--val_freq", str(val_freq)]
         gc.collect()
@@ -1702,6 +1729,239 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
                 warm_step_ms=np.mean(warm) * 1e3, data_wait_ms=np.mean(waits) * 1e3,
                 data_wait_steady_ms=steady,
                 peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
+
+
+# The float32 peak device memory (MiB) of phases train and cli_trajectory:
+# half of what they peaked at while cuDNN's float32 convolutions held
+# multi-GiB workspaces (12808.8 and 14874.4 MiB on an H100 80GB HBM3, 700 W)
+F32_PEAK_LIMITS_MIB = {"train": 6404, "cli_trajectory": 7437}
+# The preprocessing tools over the keypose CLI's fixture tree; the text
+# encoder is a seeded stand-in for CLIP's (no weights are downloaded): byte
+# tokens, an embedding and one linear layer, (n, 53) ids -> (n, 53, 512).
+ANNOTATIONS = [{"task": "pick_and_lift", "variation": 0,
+                "instructions": ["pick up the red block and lift it", "lift the red block"]}]
+PREPROCESS_CLI_ITERS = 3
+# find_cylinder_points at a realistic width: B 16, a cloud of 3 cameras at
+# 256^2, 50 line samples; masks may differ only within CYLINDER_TOL of the
+# radius; sample_grid at 10 (JAX's default) and 100 points per axis
+CYLINDER_B, CYLINDER_P, CYLINDER_N, CYLINDER_TOL = TRAIN_B, NCAM * 256 * 256, 50, 1e-5
+GRID_SIZES, GRID_TOL = (10, 100), 1e-6
+
+
+class ByteTokenizer:
+    """A tokenizer callable of transformers' form: byte ids (+2) between a
+    start (1) and an end (0) token, padded with 0 to ``model_max_length``."""
+
+    model_max_length = 77
+
+    def __call__(self, texts, padding="max_length"):
+        ids = [[1] + [2 + b for b in text.encode()] + [0] for text in texts]
+        return {"input_ids": [row + [0] * (self.model_max_length - len(row)) for row in ids]}
+
+
+class SeededTextEncoder(torch.nn.Module):
+    def __init__(self, width=512, vocab=258, seed=SEED):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.embed = torch.nn.Embedding(vocab, width)
+        self.proj = torch.nn.Linear(width, width)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) / width ** 0.5)
+
+    def forward(self, ids):
+        return types.SimpleNamespace(last_hidden_state=torch.tanh(self.proj(self.embed(ids))))
+
+
+def check_geometry_ops(dev, card):
+    """find_cylinder_points and sample_grid on the card against the CPU at
+    the realistic width above."""
+    rng = np.random.default_rng(SEED)
+    lo, hi = np.asarray(BOUNDS[0]), np.asarray(BOUNDS[1])
+    cloud = rng.uniform(lo, hi, (CYLINDER_B, CYLINDER_P, 3)).astype(np.float32)
+    start, end = (rng.uniform(lo, hi, (CYLINDER_B, 3)).astype(np.float32) for _ in range(2))
+    args = [torch.from_numpy(a) for a in (start, end)] + [CYLINDER_N, torch.from_numpy(cloud)]
+    on_card = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    find_cylinder_points(*on_card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mask = find_cylinder_points(*on_card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert mask.device.type == "cuda" and mask.dtype == torch.bool, mask
+    t0 = time.perf_counter()
+    want = find_cylinder_points(*args).numpy()
+    cpu_s = time.perf_counter() - t0
+    got = mask.cpu().numpy()
+    # each point's float64 distance to the nearest line sample against the radius
+    s64, e64 = start.astype(np.float64), end.astype(np.float64)
+    ts = np.arange(CYLINDER_N)[:, None]
+    clear = np.empty_like(got)
+    for b in range(CYLINDER_B):
+        line = s64[b] + (e64[b] - s64[b]) / (CYLINDER_N - 1) * ts
+        d2 = np.full(CYLINDER_P, np.inf)
+        for point in line:
+            d2 = np.minimum(d2, ((cloud[b].astype(np.float64) - point) ** 2).sum(-1))
+        clear[b] = np.abs(np.sqrt(d2) - np.abs(e64[b] - s64[b]).max()) > CYLINDER_TOL
+    off = int((got != want).sum())
+    assert (got[clear] == want[clear]).all(), off
+    print(f"find_cylinder_points (B {CYLINDER_B}, P {CYLINDER_P}, n {CYLINDER_N}): card "
+          f"{card_s * 1e3:.1f} ms (one call, host clock to a synchronized end; peak "
+          f"{peak / 2**20:.1f} MiB), CPU {cpu_s * 1e3:.1f} ms; {int(got.sum())} of "
+          f"{got.size} points inside; masks differ at {off} points, all within "
+          f"{CYLINDER_TOL} of the radius ({int((~clear).sum())} points there) | {card}",
+          flush=True)
+    bounds = torch.tensor(BOUNDS, dtype=torch.float32)
+    grid_err = {}
+    for n in GRID_SIZES:
+        grid = sample_grid(bounds.to(dev), n)
+        assert grid.device.type == "cuda" and grid.dtype == torch.float32
+        assert grid.shape == (n ** 3, 3), grid.shape
+        grid_err[n] = float((grid.cpu() - sample_grid(bounds, n)).abs().max())
+        assert grid_err[n] <= GRID_TOL, grid_err
+    print(f"sample_grid on the card vs the CPU, max |diff| per points per axis {grid_err} "
+          f"(tolerance {GRID_TOL}) | {card}", flush=True)
+    return dict(cylinder_card_ms=card_s * 1e3, cylinder_cpu_ms=cpu_s * 1e3,
+                cylinder_peak_bytes=peak, cylinder_mask_diffs=off,
+                cylinder_near_radius=int((~clear).sum()), grid_max_abs=grid_err)
+
+
+def phase_preprocess(dev, card, per_step):
+    """The preprocessing tools over the keypose CLI's fixture tree, then the
+    keypose CLI trained over what they wrote, then the geometry ops."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preprocess_") as tmp:
+        tmp = Path(tmp)
+        tree, _ = write_fixture_tree(tmp, CLI_EPISODES)
+        t0 = time.perf_counter()
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            validate_episodes.main(["--dataset", str(tree), "--tasks", "pick_and_lift",
+                                    "--deep"])
+        lines = report.getvalue().splitlines()
+        assert lines == [f"pick_and_lift+0: {CLI_EPISODES}", "schema check: 0 bad episodes"], \
+            lines
+        validate_s = time.perf_counter() - t0
+
+        bounds_path = tmp / "bounds.json"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            compute_workspace_bounds.main(["--dataset", str(tree), "--tasks", "pick_and_lift",
+                                           "--out_file", str(bounds_path)])
+        bounds_s = time.perf_counter() - t0
+        locs = []
+        for path in sorted((tree / "pick_and_lift+0").glob("ep*.dat")):
+            ep = load_episode(path)
+            locs += [np.asarray(a)[..., :3].reshape(-1, 3) for a in list(ep[2]) + list(ep[5])]
+        locs = np.concatenate(locs)
+        bounds = json.loads(bounds_path.read_text())
+        assert bounds == {"pick_and_lift": [locs.min(0).tolist(), locs.max(0).tolist()]}, bounds
+
+        annotations = tmp / "annotations.json"
+        annotations.write_text(json.dumps(ANNOTATIONS))
+        ipath = tmp / "instructions.pkl"
+        tokenizer, encoder = ByteTokenizer(), SeededTextEncoder()
+        on_cpu = copy.deepcopy(encoder)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            preprocess_instructions.main(["--tasks", "pick_and_lift", "--annotations",
+                                          str(annotations), "--output", str(ipath)],
+                                         tokenizer=tokenizer, model=encoder)
+        instr_s = time.perf_counter() - t0
+        assert all(p.device.type == "cuda" for p in encoder.parameters())
+        feats = pickle.loads(ipath.read_bytes())["pick_and_lift"][0]
+        texts = ANNOTATIONS[0]["instructions"]
+        with torch.no_grad():
+            want = on_cpu(torch.tensor(tokenizer(texts)["input_ids"])).last_hidden_state
+        assert feats.dtype == np.float32 and feats.shape == (len(texts), 53, 512), feats.shape
+        instr_err = float(np.abs(feats - want.numpy()).max())
+        assert instr_err <= 1e-5, instr_err
+        print(f"preprocess: validate --deep {validate_s * 1e3:.1f} ms ({lines}); "
+              f"compute_workspace_bounds {bounds_s * 1e3:.1f} ms, equal to the inline min/max "
+              f"of {len(locs)} positions; preprocess_instructions on the card "
+              f"{instr_s * 1e3:.1f} ms, features {feats.shape} vs the encoder on the CPU "
+              f"max |diff| {instr_err:.3e} | {card}", flush=True)
+        cli = phase_cli(dev, card, "preprocess_cli_keypose", main_keypose.main,
+                        KEYPOSE_CLI_FLAGS, PREPROCESS_CLI_ITERS, PREPROCESS_CLI_ITERS, per_step,
+                        "mean/pos_l2_final", data=(tree, ipath, bounds_path))
+    geometry = check_geometry_ops(dev, card)
+    return dict(validate_ms=validate_s * 1e3, bounds_ms=bounds_s * 1e3,
+                instructions_ms=instr_s * 1e3, instructions_max_abs=instr_err, cli=cli,
+                **geometry)
+
+
+# The profiled step window: phase train's ChainedDiffuser, PROFILE_WARMUP
+# steps, then PROFILE_STEPS steps under profiling.trace
+PROFILE_WARMUP, PROFILE_STEPS = 2, 3
+# device kernels of the fused-MHA wrappers, by a part of their names in the
+# trace: the main kernels (one per wrapper call) and the split / slab sums
+MHA_KERNELS = {"fwd": ("mha_fwd_kernel", "mha_fwd_combine_kernel"),
+               "bwd": ("mha_bwd_kernel", "sum_slabs_kernel")}
+
+
+def phase_profile(dev, card):
+    """StepTimer and profiling.trace around the flagship ChainedDiffuser's
+    steps; the trace read back: the fused-MHA kernels' counts against the
+    wrappers' counters and the launch plans."""
+    torch.manual_seed(SEED)
+    model = make_diffusion_model(device=dev)
+    batch = synthetic_trajectory_batch(TRAIN_B, NCAM, (256, 256), TRAJ_LEN, seed=SEED,
+                                       device=dev)
+    trainer = Trainer(diffusion_loss_fn(model), model, lr=1e-4, weight_decay=5e-4, seed=SEED)
+    for _ in range(PROFILE_WARMUP):
+        trainer.step(batch)["loss"].item()
+    torch.cuda.synchronize()
+    timer = profiling.StepTimer()
+    start = (fused_mha_forward.launches, fused_mha_backward.launches)
+    losses = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            for _ in range(PROFILE_STEPS):
+                losses.append(trainer.step(batch)["loss"].item())
+                torch.cuda.synchronize()
+                timer.tick()
+        traced_s = time.perf_counter() - t0
+        path = Path(tmp) / profiling.TRACE_FILE
+        trace_mib = path.stat().st_size / 2**20
+        kernels = profiling.kernel_times(path)
+        top = profiling.top_kernels(path, k=6)
+    launched = (fused_mha_forward.launches - start[0], fused_mha_backward.launches - start[1])
+    per_step = planner_sites_per_denoise()
+    assert launched == (per_step * PROFILE_STEPS,) * 2, launched
+    assert all(np.isfinite(loss) for loss in losses), losses
+
+    def counted(part):
+        rows = [r for name, r in kernels.items() if part in name and "bf16" not in name]
+        return sum(r["count"] for r in rows), sum(r["us"] for r in rows) / 1e3
+
+    sites = [(l, s, n) for _, l, s, _, _, n in TRAIN_SHAPES if n]
+    d = PLANNER_CFG["embedding_dim"] // 8
+    plans = {"fwd": fwd_plan, "bwd": bwd_plan}
+    found = {}
+    for kind, (main_part, extra_part) in MHA_KERNELS.items():
+        want = PROFILE_STEPS * sum(plans[kind](TRAIN_B, l, s, 8, d).kernels * n
+                                   for l, s, n in sites)
+        (mains, main_ms), (extras, extra_ms) = counted(main_part), counted(extra_part)
+        found[kind] = dict(main_kernels=mains, other_kernels=extras, plan_kernels=want,
+                           wrapper_calls=launched[0 if kind == "fwd" else 1],
+                           device_ms_per_step=(main_ms + extra_ms) / PROFILE_STEPS)
+        assert mains == found[kind]["wrapper_calls"] and mains + extras == want, found
+    summary = timer.summary(TRAIN_B)
+    assert summary["steps_measured"] == PROFILE_STEPS - 1, summary
+    assert np.isfinite(summary["mean_step_time_s"]) and np.isfinite(summary["samples_per_sec"])
+    busy_ms = sum(r["us"] for r in kernels.values()) / 1e3 / PROFILE_STEPS
+    events = sum(r["count"] for r in kernels.values()) / PROFILE_STEPS
+    print(f"profile: {PROFILE_STEPS} steps under profiling.trace in {traced_s:.2f} s (trace "
+          f"{trace_mib:.1f} MiB); StepTimer {summary}; device kernels per step {events:.0f}, "
+          f"busy {busy_ms:.2f} ms; fused-MHA kernels in the trace {found} | {card}", flush=True)
+    for name, ms, count in top:
+        print(f"profile top kernel: {ms / PROFILE_STEPS:.3f} ms per step, {count} events: "
+              f"{name[:120]}", flush=True)
+    return dict(step_timer=summary, traced_s=traced_s, trace_mib=trace_mib,
+                device_busy_ms_per_step=busy_ms, kernel_events_per_step=events,
+                fused_mha=found, losses=losses)
 
 
 @contextlib.contextmanager
@@ -2817,6 +3077,10 @@ def main() -> int:
     print(f"tf32: matmul {precision['matmul']} cudnn conv {precision['conv']} (fp32_precision "
           f"as the port set it; ieee = float32, no TF32)", flush=True)
     assert precision == {"matmul": "ieee", "conv": "ieee"}, precision
+    heuristics = os.environ.get(CUDNN_HEURISTIC_MODE_B)
+    print(f"cudnn heuristics: {CUDNN_HEURISTIC_MODE_B}={heuristics} (the port's policy: "
+          f"float32 engines with small workspaces)", flush=True)
+    assert heuristics == "1", heuristics
 
     t0 = time.perf_counter()
     paths = _build.build()
@@ -2881,6 +3145,13 @@ def main() -> int:
     cli_traj = drive("cli_trajectory", phase_cli, dev, card, "cli_trajectory",
                      main_trajectory.main, TRAJECTORY_CLI_FLAGS, 4, 4, per_step_traj,
                      "traj_action_mse")
+    peaks = {"train": train_memory["peak_memory_bytes"] / 2**20,
+             "cli_trajectory": cli_traj["peak_memory_bytes"] / 2**20}
+    print(f"float32 peak memory (MiB) {peaks}, limits {F32_PEAK_LIMITS_MIB} | {card}",
+          flush=True)
+    assert all(peaks[k] <= F32_PEAK_LIMITS_MIB[k] for k in peaks), peaks
+    preprocess = drive("preprocess", phase_preprocess, dev, card, per_step_kp)
+    profile = drive("profile", phase_profile, dev, card)
     per_step_options = per_unit_launches(fused_mha_fwd=19 * OPTION_BLOCKS,
                                          fused_mha_bwd=19 * OPTION_BLOCKS)
     cli_traj_opt = drive("cli_trajectory_options", phase_cli, dev, card,
@@ -3111,6 +3382,7 @@ def main() -> int:
                       cli_keypose_host_path=dict(cli_kp_hp, workers=workers),
                       cli_trajectory_host_path=dict(cli_traj_hp, workers=workers),
                       host_path=host, dp_equal=dp_equal, cli_dp=cli_dp,
+                      preprocess=preprocess, profile=profile, float32_peaks_mib=peaks,
                       kernels_dropout_offset_seconds=offset_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

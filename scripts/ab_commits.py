@@ -10,7 +10,9 @@ runs ``python3 chip_smoke.py`` from each tree in turns (A, B, B, A), one
 process at a time, keeps each run's output beside ``--out``, and
 reads the kernel line (the second-to-last line) of every run.  Prints, for
 each kernel and each timed site, the per-call device time of every run
-side by side, and the sums per unit; writes every run's kernel line to
+side by side, and the sums per unit; then each training phase's warm step
+time (host clock to a synchronized end, mean of the steps after the first)
+and peak device memory in every run; writes every run's kernel line to
 ``--out``.  Exits non-zero if a run fails.
 """
 
@@ -51,6 +53,26 @@ def site_times(kernel: dict) -> dict:
     return out
 
 
+def phase_steps(kernels: list) -> dict:
+    """{phase: (warm step ms, peak MiB)} of the training phases in a kernel
+    line: the flagship steps (train, train_act3d) and every CLI phase."""
+    by_name = {k["name"]: k for k in kernels}
+    out = {}
+    for phase, kernel, steps_key, memory in (
+            ("train", "fused_mha_bwd", "train_steps", "train"),
+            ("train_act3d", "scatter_rows_sorted", "keypose_train_steps", None)):
+        entry = by_name.get(kernel, {})
+        holder = entry.get(memory, {}) if memory else entry
+        steps = holder.get(steps_key, [])
+        if len(steps) > 1:
+            warm = [st["seconds"] * 1e3 for st in steps[1:]]
+            out[phase] = (sum(warm) / len(warm), holder.get("peak_memory_bytes", 0) / 2**20)
+    for phase, value in by_name.get("fused_mha_fwd", {}).items():
+        if isinstance(value, dict) and "warm_step_ms" in value:
+            out[phase] = (value["warm_step_ms"], value.get("peak_memory_bytes", 0) / 2**20)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("a", type=Path, help="tree A (run first and last)")
@@ -75,6 +97,11 @@ def main() -> int:
             times = " / ".join(f"{sites[t][site][0] * 1e3:.1f}" if site in sites[t] else "-"
                                for t in tags)
             print(f"  {site:34s} x{sites['B1'][site][1]:<4d} us per call {times}")
+    steps = {t: phase_steps(runs[t]["kernels"]) for t in tags}
+    for phase in steps["B1"]:
+        print(f"{phase}: warm step ms / peak MiB " + ", ".join(
+            f"{t} {steps[t][phase][0]:.1f} / {steps[t][phase][1]:.1f}" if phase in steps[t]
+            else f"{t} -" for t in tags))
     return 0
 
 

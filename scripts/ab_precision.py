@@ -20,6 +20,11 @@ it buys on one card, in one process, by swapping the function that
   vector, and for Act3D the predicted positions that differ from the
   CPU's.
 
+PyTorch reads cuDNN's heuristic mode once per process, at its first
+convolution, so the port's choice of it (heuristic mode B, part of
+``pin_float32``) is set here before anything runs and holds in both modes;
+the modes differ in ``fp32_precision`` alone.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/ab_precision.py --out chiprun_out/ab_precision.json
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -161,14 +167,16 @@ def main() -> int:
         print("ab_precision: no CUDA device", file=sys.stderr)
         return 1
     default = device_mod.float32_precision()  # before any entry point pins
+    os.environ[device_mod.CUDNN_HEURISTIC_MODE_B] = "1"  # before the first convolution
     dev = torch.device("cuda")
     card = smoke.nvidia_smi()
     print(card, flush=True)
     print(f"PyTorch's default fp32_precision: {default}", flush=True)
     _build.build()
 
-    per_kp = (18, 18, smoke.KEYPOSE_LEVELS - 1, 0, 0, 0)  # in chip_smoke.KERNELS order
-    per_traj = (19, 19, 0, 0, 0, 0)
+    per_kp = smoke.per_unit_launches(fused_mha_fwd=18, fused_mha_bwd=18,
+                                     scatter_rows_sorted=smoke.KEYPOSE_LEVELS - 1)
+    per_traj = smoke.per_unit_launches(fused_mha_fwd=19, fused_mha_bwd=19)
     clis = {"cli_keypose": (main_keypose.main, smoke.KEYPOSE_CLI_FLAGS, per_kp,
                             "mean/pos_l2_final"),
             "cli_trajectory": (main_trajectory.main, smoke.TRAJECTORY_CLI_FLAGS, per_traj,

@@ -8,10 +8,13 @@
   which the card's machine lacks; every module imports without matplotlib
   and tensorboard (the host path's viz and logger import them inside
   functions), and a CLI asked for ``--use_tensorboard 1`` without
-  tensorboard raises ImportError before it writes anything.
+  tensorboard raises ImportError before it writes anything; the
+  preprocessing tools and the profiler import without ``transformers``,
+  PIL, RLBench and PyRep.
 * The entry points run on the card by default: without one they raise
-  instead of drifting to the CPU, and ``chip_smoke.py`` exits non-zero
-  without printing a result.
+  instead of drifting to the CPU (``preprocess_instructions`` too, with
+  ``--device cuda`` or no ``--device``), and ``chip_smoke.py`` exits
+  non-zero without printing a result.
 """
 
 import os
@@ -80,6 +83,23 @@ print("ok")
 """
 
 
+_IMPORT_PREPROCESSING = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "transformers", "PIL", "rlbench", "pyrep"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import act3d_tpu_torch.preprocessing as pre
+names = [m.name for m in pkgutil.walk_packages(pre.__path__, "act3d_tpu_torch.preprocessing.")]
+for name in names + ["act3d_tpu_torch.train.profiling"]:
+    importlib.import_module(name)
+assert len(names) == 5, names
+from act3d_tpu_torch.eval import rlbench_env
+assert not rlbench_env.HAS_RLBENCH
+leaked = sorted(m for m in sys.modules if m == "act3d_tpu" or m.startswith("act3d_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args, cwd, **kw):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -103,6 +123,35 @@ def test_eval_cli_imports_without_opencv_or_the_simulator():
     proc = _run(["-c", _IMPORT_EVAL], REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["ok"]
+
+
+def test_preprocessing_and_profiling_import_without_transformers_pil_or_the_simulator():
+    proc = _run(["-c", _IMPORT_PREPROCESSING], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
+@pytest.mark.parametrize("device", [["--device", "cuda"], []])
+def test_preprocess_instructions_without_a_device_raises_here(tmp_path, device):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from act3d_tpu_torch.preprocessing import preprocess_instructions
+
+    ann = tmp_path / "annotations.json"
+    ann.write_text('[{"task": "pick_and_lift", "variation": 0, "instructions": ["pick"]}]')
+
+    def tokenizer(texts, padding):  # never reached
+        raise AssertionError("the encoder ran without a card")
+
+    out = tmp_path / "instructions.pkl"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_instructions.main(["--tasks", "pick_and_lift", "--annotations", str(ann),
+                                      "--output", str(out)] + device,
+                                     tokenizer=tokenizer, model=torch.nn.Identity())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_instructions.encode_instructions(["pick"], tokenizer=tokenizer,
+                                                    model=torch.nn.Identity())
+    assert not out.exists()
 
 
 def test_entry_points_without_a_device_raise_here():

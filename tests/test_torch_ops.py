@@ -136,3 +136,32 @@ def test_topk_nearest_context_and_gather_match_jax():
     np.testing.assert_array_equal(got.numpy(), want)
     close(geometry.gather_tokens(t(feats), got),
           jgeo.gather_tokens(jnp.asarray(feats), jnp.asarray(want)), 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 10])
+def test_sample_grid_matches_jax(n):
+    bounds = np.asarray([[-0.3, -0.5, 0.75], [0.7, 0.5, 1.5]], np.float32)
+    want = jsamp.sample_grid(jnp.asarray(bounds), n)
+    got = sampling.sample_grid(t(bounds), n)
+    assert got.shape == (n ** 3, 3) and got.dtype == torch.float32
+    close(got, want, 1e-6)
+
+
+def test_find_cylinder_points_matches_jax_but_at_the_radius():
+    rng = np.random.default_rng(8)
+    cloud = rng.uniform(-1, 1, (2, 500, 3)).astype(np.float32)
+    start = rng.uniform(-0.5, 0.5, (2, 3)).astype(np.float32)
+    end = rng.uniform(-0.5, 0.5, (2, 3)).astype(np.float32)
+    n = 50
+    want = np.asarray(jgeo.find_cylinder_points(jnp.asarray(start), jnp.asarray(end), n,
+                                                jnp.asarray(cloud)))
+    got = geometry.find_cylinder_points(t(start), t(end), n, t(cloud)).numpy()
+    assert got.dtype == np.bool_ and got.shape == (2, 500)
+    # float64 distance to the nearest line sample against the radius
+    s64, e64 = start.astype(np.float64), end.astype(np.float64)
+    line = s64[:, None] + (e64 - s64)[:, None] / (n - 1) * np.arange(n)[None, :, None]
+    d = np.linalg.norm(line[:, :, None] - cloud[:, None].astype(np.float64), axis=-1).min(1)
+    margin = np.abs(d - np.abs(e64 - s64).max(1)[:, None])
+    clear = margin > 1e-5
+    assert want[clear].any() and not want[clear].all()  # both sides of the radius occur
+    np.testing.assert_array_equal(got[clear], want[clear])

@@ -71,11 +71,32 @@
 // The one difference is where it rounds: the TPU rounds exp(s - m) with
 // the row's final max, this kernel exp(s - m) with its running max, which
 // the online softmax then rescales in float32 (a relative change of one
-// bf16 rounding either way).  Products on mma.sync m16n8k16 bf16
-// (mma_bf16.cuh): 989 TFLOP/s dense, one product per product, no split;
-// d padded with zeros to DP = 16, 32 or 64.  Grid, plan, key tiles, split
-// and combine are the float32 kernel's; K is staged row-major and V
-// transposed, so every B operand is one 32-bit shared-memory word.
+// bf16 rounding either way).  It has two bodies, picked by the wrapper's
+// plan (kernels/attention.py::fwd_plan_bf16) by shape:
+//   * wgmma (Hopper; csrc/mha_wgmma_bf16.cuh), for L > 16 and d <= 32.  At
+//     d = 15 the bound is the exponentials, B*L*S*H on 132 x 16 special-
+//     function lanes (the ghost site: 66.6 M, 16 us), not the products (4
+//     GFLOP, 4 us at 989 TFLOP/s) or the bytes (a few MB).  A block is one
+//     64-row query tile of one batch row for a group of heads, one
+//     warpgroup per head, over one chunk of the keys.  Warp 0 stages the
+//     query tile and the chunk's key tiles of all heads (K, V, the mask
+//     bytes: each a contiguous run) by 1-D bulk copies into a 4-stage ring
+//     (mbarrier completion); the warpgroup that releases a stage last
+//     refills it, so no warpgroup waits for another.  Each warpgroup re-lays
+//     its head's lane slice into wgmma operands, s = q k^T on wgmma m64n64k16
+//     (q in registers), the online softmax in exp2 units (one FFMA and one
+//     ex2.approx per score; the stats keep m in natural units), and p v on
+//     mma.sync m16n8k16 per warp with p taken from the s accumulator in
+//     registers (an A/B against wgmma m64n16k16 chose it, PERF.md).  A mask
+//     is a template flag (unmasked sites read none).  With nsplit > 1 each
+//     block writes its chunk's (m, l, acc) and the last block of a tile to
+//     arrive (a counter) combines the chunks in chunk order in the same
+//     launch: no atomics on data, the same bits on every run.
+//   * mma.sync m16n8k16 (mma_bf16.cuh), for L <= 16 (one row of a 64-row
+//     wgmma tile) and d > 32: the float32 kernel's grid, plan, key tiles,
+//     split and combine, d padded with zeros to DP = 16, 32 or 64; K is
+//     staged row-major and V transposed, so every B operand is one 32-bit
+//     shared-memory word.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,6 +105,7 @@
 #include "dropout_hash.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "mha_wgmma_bf16.cuh"
 
 namespace {
 
@@ -698,6 +720,408 @@ cudaError_t launch_bf16(bool dropout, const uint16_t* q, const uint16_t* k,
                                          warps, chunk, nsplit, drop, stream);
 }
 
+// ------------------------------------------------- bf16 on wgmma (Hopper)
+// The bf16 body of the sites with more than 16 query rows and d <= 32 (see
+// the header comment): a block is one 64-row query tile of one batch row for
+// a group of G heads (G warpgroups, one head and 64 rows each), over one
+// chunk of the keys.  Warp 0 stages the query tile once and the chunk's first
+// key tiles of all heads (K, V and the mask bytes) into a ring of kWgStages
+// stages; the warpgroup that releases a stage last refills it.  Each
+// warpgroup re-lays its head's slice of a stage into operands (K [key][DP],
+// V^T [DP][key], two buffers each), then s = q k^T (wgmma m64 n64 k16, q in
+// registers), the online softmax in exp2 units and p v (mma.sync, p from the
+// s accumulator in registers) into the running output.  With nsplit > 1 each block writes
+// its chunk's (m, l, unnormalised acc); the last block of a tile to arrive
+// (a counter) combines the chunks in chunk order and writes out and stats.
+struct WgFwdArgs {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  const uint8_t* mask;
+  uint16_t* out;
+  float* stats;
+  float* part_acc;
+  float* part_ml;
+  int* counters;
+  const char* keyrec;  // key records (PREP), [b][key tile][h]
+  int B, L, S, H, d, G, q_tiles, chunk, nsplit;
+  Dropout drop;
+};
+
+constexpr size_t kMaxSmem = 232448;  // bytes a block may use on the H100
+
+// Shared bytes of a block: barriers, the ring (K, V and mask bytes of a key
+// tile; with key records each head's V^T and K and the mask bytes), the query
+// tile, and without records each head's operand buffers (K and V^T twice
+// each: a warp re-lays tile it + 2 into a buffer once every warp of its
+// warpgroup has passed tile it + 1's barrier, past its reads of tile it).
+size_t wg_fwd_smem(int E, int dp, int G, bool prep) {
+  const size_t op = act3d_op_bytes(dp);
+  const size_t stage = (prep ? (size_t)G * 2 * op
+                             : 2 * act3d_wg_run_bytes((size_t)kWgKeys * E * 2)) +
+                       act3d_wg_run_bytes(kWgKeys);
+  return 128 + kWgStages * stage + act3d_wg_run_bytes((size_t)kWgRows * E * 2) +
+         (prep ? 0 : (size_t)G * 4 * op);
+}
+
+// PREP: the key tiles come as records (act3d_prep_kernel), staged by bulk
+// copies and read in place; every warp releases a stage after its tile.
+template <int DP, bool MASK, bool DROPOUT, bool STATS, bool PREP>
+__global__ void __launch_bounds__(128 * act3d_wg_max_group(DP), 1)
+mha_fwd_bf16_wgmma_kernel(const WgFwdArgs a) {
+  constexpr int NK = kWgKeys;
+  constexpr int KS = DP / 16;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int E = a.H * a.d;
+  const int G = a.G;
+  const int b = blockIdx.z;
+  const int hg = blockIdx.y;
+  const int tile = blockIdx.x % a.q_tiles;
+  const int split = blockIdx.x / a.q_tiles;
+  const int r0 = tile * kWgRows;
+  const int nr = min(kWgRows, a.L - r0);
+  const int c_begin = split * a.chunk;
+  const int c_end = min(a.S, c_begin + a.chunk);
+  const int n_tiles = (c_end - c_begin + NK - 1) / NK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+
+  Act3dCarve cv{smem_raw};
+  uint64_t* full = cv.take<uint64_t>(128);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* qbar = full + 2 * kWgStages;
+  int& last_block = reinterpret_cast<int*>(full)[31];  // past the barriers
+  const size_t kv_run = act3d_wg_run_bytes((size_t)NK * E * 2);
+  const size_t op = act3d_op_bytes(DP);
+  const size_t mask_at = PREP ? G * 2 * op : 2 * kv_run;  // K, V (or records), mask bytes
+  const size_t stage_bytes = mask_at + act3d_wg_run_bytes(NK);
+  char* stages = cv.take<char>(kWgStages * stage_bytes);
+  char* q_raw = cv.take<char>(act3d_wg_run_bytes((size_t)kWgRows * E * 2));
+  unsigned* released = reinterpret_cast<unsigned*>(full) + 20;  // bytes 80-95
+  const int arrivals = PREP ? 4 * G : G;  // releases of a stage
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      act3d_mbar_init(&full[i], 32);
+      act3d_mbar_init(&empty[i], arrivals);
+      released[i] = 0u;
+    }
+    act3d_mbar_init(qbar, 32);
+    act3d_mbar_init_fence();
+  }
+  __syncthreads();
+
+  const uint16_t* q_src = a.q + ((size_t)b * a.L + r0) * E;
+  // warp 0 stages the query tile and the first stages; each later stage is
+  // refilled by the warpgroup that releases it last
+  const bool stager = warp == 0;
+  const uint16_t* kv_end = a.k + (size_t)a.B * a.S * E;
+  const uint16_t* v_end = a.v + (size_t)a.B * a.S * E;
+  const uint8_t* mask_end = a.mask + (size_t)a.B * a.S;
+  const int key_tiles = (a.S + NK - 1) / NK;
+  const size_t krec = act3d_record_bytes(kFwdKeys, DP);  // V^T, K
+  const char* krec_end = a.keyrec + (size_t)a.B * key_tiles * a.H * krec;
+  auto stage_tile = [&](int it) {
+    const int k0 = c_begin + it * NK;
+    const int n = min(NK, c_end - k0);
+    char* base = stages + (it % kWgStages) * stage_bytes;
+    const uint8_t* m0 = a.mask + (size_t)b * a.S + k0;
+    const Act3dRun mrun = {base + mask_at, m0, MASK ? (uint32_t)n : 0u, a.mask, mask_end};
+    if (PREP) {  // the group's records: one contiguous run
+      const char* rec = a.keyrec + (((size_t)b * key_tiles + k0 / NK) * a.H + hg * G) * krec;
+      const Act3dRun runs[2] = {{base, rec, (uint32_t)(G * krec), a.keyrec, krec_end}, mrun};
+      act3d_stage_runs(runs, &full[it % kWgStages], lane);
+    } else {
+      const size_t off = ((size_t)b * a.S + k0) * E;
+      const Act3dRun runs[3] = {{base, a.k + off, (uint32_t)(n * E * 2), a.k, kv_end},
+                                {base + kv_run, a.v + off, (uint32_t)(n * E * 2), a.v, v_end},
+                                mrun};
+      act3d_stage_runs(runs, &full[it % kWgStages], lane);
+    }
+  };
+  if (stager) {
+    const Act3dRun qrun[1] = {{q_raw, q_src, (uint32_t)(nr * E * 2), a.q,
+                               a.q + (size_t)a.B * a.L * E}};
+    act3d_stage_runs(qrun, qbar, lane);
+    for (int it = 0; it < n_tiles && it < kWgStages; ++it) stage_tile(it);
+  }
+
+  // warpgroup wg: head h, rows r0 + 16 * wl + g (+ 8)
+  char* mine = cv.p + (size_t)wg * 4 * op;  // without records: K and V^T twice each
+  const int h = hg * G + wg;
+  const int tid = threadIdx.x & 127;
+  const int wl = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_a = r0 + 16 * wl + g;
+  const int row_b = row_a + 8;
+
+  act3d_mbar_wait(qbar, 0);
+  const uint16_t* qs = act3d_run_at<uint16_t>(q_raw, q_src) + h * a.d;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) act3d_wg_load_a(qa[kk], qs, E, nr, a.d, 16 * wl, 16 * kk, g, t);
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  uint32_t rk_a = 0u, rk_b = 0u;
+  if (DROPOUT) {
+    rk_a = act3d_dropout_row_key(a.drop.seed, a.drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(a.drop.seed, a.drop.b0 + b, h, row_b);
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kWgStages;
+    const int k0 = c_begin + it * NK;
+    const int n = min(NK, c_end - k0);
+    act3d_mbar_wait(&full[st], (it / kWgStages) & 1);
+    const char* base = stages + st * stage_bytes;
+    const size_t off = ((size_t)b * a.S + k0) * E;
+    uint16_t* kop = reinterpret_cast<uint16_t*>(mine + (it & 1) * op);
+    uint16_t* vop = reinterpret_cast<uint16_t*>(mine + (2 + (it & 1)) * op);
+    if (PREP) {
+      vop = reinterpret_cast<uint16_t*>(const_cast<char*>(base) + wg * 2 * op);
+      kop = vop + 64 * DP;
+    } else {
+      act3d_wg_direct<NK, DP>(kop, act3d_run_at<uint16_t>(base, a.k + off) + h * a.d, E, n,
+                              a.d, tid);
+      act3d_wg_trans<NK, DP, false>(
+          vop, act3d_run_at<uint16_t>(base + kv_run, a.v + off) + h * a.d, E, n, a.d, tid,
+          nullptr);
+    }
+    // this thread's mask bytes (keys 8i + 2t + u), read before the stage is released
+    uint32_t mbits = 0u;
+    if (MASK) {
+      const uint8_t* mrow = act3d_run_at<uint8_t>(base + mask_at, a.mask + (size_t)b * a.S + k0);
+#pragma unroll
+      for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (8 * i + 2 * t + u < n && mrow[8 * i + 2 * t + u]) mbits |= 1u << (2 * i + u);
+        }
+      }
+    }
+    if (!PREP) {  // the re-laid operands are this warpgroup's own: release the stage now
+      act3d_fence_proxy_async();
+      act3d_named_bar(1 + wg, 128);
+      if (wl == 0) {
+        act3d_release_stage(&empty[st], &released[st], arrivals, it / kWgStages,
+                            it + kWgStages, n_tiles, lane, stage_tile);
+      }
+    }
+
+    // s = q k^T on wgmma
+    float s[NK / 2];
+    act3d_wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      act3d_wgmma_rs_n64(s, qa[kk], act3d_wg_desc(kop + kk * 128, DP * 16), kk > 0);
+    }
+    act3d_wg_commit();
+    act3d_wg_wait<0>();
+    act3d_reg_fence(s);
+
+    // element 4i + e of s: row g (e < 2) or g + 8, key 8i + 2t + (e & 1)
+    if (MASK || n < NK) {
+#pragma unroll
+      for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * i + 2 * t + (e & 1);
+          if (col >= n) {
+            s[4 * i + e] = -INFINITY;
+          } else if (MASK && ((mbits >> (2 * i + (e & 1))) & 1u)) {
+            s[4 * i + e] = kMaskedScore;
+          }
+        }
+      }
+    }
+    float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NK / 8; ++i) {
+      ta = fmaxf(ta, fmaxf(s[4 * i], s[4 * i + 1]));
+      tb = fmaxf(tb, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    // every tile holds a key of the chunk, so the new max is finite
+    const float na = fmaxf(m_a, quad_max(ta));
+    const float nb = fmaxf(m_b, quad_max(tb));
+    const float sa = act3d_ex2((m_a - na) * kLog2e);  // 0 while m is still -inf
+    const float sb = act3d_ex2((m_b - nb) * kLog2e);
+    m_a = na;
+    m_b = nb;
+    l_a *= sa;
+    l_b *= sb;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= sa;
+      o[4 * j + 1] *= sa;
+      o[4 * j + 2] *= sb;
+      o[4 * j + 3] *= sb;
+    }
+    const float ma2 = m_a * kLog2e, mb2 = m_b * kLog2e;
+#pragma unroll
+    for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ra = e < 2;
+        // masked scores sit at -1e30: (s - m) first, so a fully masked row
+        // (m = -1e30) gets exp(0) exactly; elsewhere one FFMA
+        float p = MASK ? act3d_ex2((s[4 * i + e] - (ra ? m_a : m_b)) * kLog2e)
+                       : act3d_ex2(fmaf(s[4 * i + e], kLog2e, -(ra ? ma2 : mb2)));
+        if (ra) l_a += p;  // l is the sum before dropout and rounding
+        else l_b += p;
+        if (DROPOUT && !act3d_dropout_keep(ra ? rk_a : rk_b, k0 + 8 * i + 2 * t + (e & 1),
+                                           a.drop.threshold)) {
+          p = 0.f;
+        }
+        s[4 * i + e] = p;
+      }
+    }
+    uint32_t pa[NK / 16][4];  // p rounded to bf16: the A operand of p v
+#pragma unroll
+    for (int kt = 0; kt < NK / 16; ++kt) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        pa[kt][u] = act3d_pack_bf16(s[8 * kt + 2 * u], s[8 * kt + 2 * u + 1]);
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < NK / 16; ++kt) {  // p v on mma.sync, B from the V^T tile
+      if (16 * kt < n) act3d_mma_rs<DP, NK>(o, pa[kt], vop, 16 * kt, g, t);
+    }
+    if (PREP) {  // this warp's reads of the stage are done
+      act3d_release_stage(&empty[st], &released[st], arrivals, it / kWgStages, it + kWgStages,
+                          n_tiles, lane, stage_tile);
+    }
+  }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+
+  const int rows[2] = {row_a, row_b};
+  const float ms[2] = {m_a, m_b};
+  const float ls[2] = {l_a, l_b};
+  const float inv_keep = DROPOUT ? a.drop.inv_keep : 1.f;
+  if (a.nsplit == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= a.L) continue;
+      const size_t bl = (size_t)b * a.L + rows[r];
+      uint16_t* dst = a.out + bl * E + h * a.d;
+      const float scale = inv_keep / ls[r];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.d) dst[c] = act3d_to_bf16(o[4 * j + 2 * r] * scale);
+        if (c + 1 < a.d) dst[c + 1] = act3d_to_bf16(o[4 * j + 2 * r + 1] * scale);
+      }
+      if (STATS && t == 0) {
+        a.stats[bl * (2 * a.H) + 2 * h] = ms[r];
+        a.stats[bl * (2 * a.H) + 2 * h + 1] = ls[r];
+      }
+    }
+    return;
+  }
+
+  // a chunk of a split tile: the partial, then the last block combines
+  const size_t bl_n = (size_t)a.B * a.L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= a.L) continue;
+    const size_t sbl = (size_t)split * bl_n + (size_t)b * a.L + rows[r];
+    float* dst = a.part_acc + sbl * E + h * a.d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < a.d) dst[c] = o[4 * j + 2 * r];
+      if (c + 1 < a.d) dst[c + 1] = o[4 * j + 2 * r + 1];
+    }
+    if (t == 0) {
+      a.part_ml[(sbl * a.H + h) * 2] = ms[r];
+      a.part_ml[(sbl * a.H + h) * 2 + 1] = ls[r];
+    }
+  }
+  __threadfence();
+  act3d_named_bar(8, 128 * G);
+  if (threadIdx.x == 0) {
+    const int unit = (b * gridDim.y + hg) * a.q_tiles + tile;
+    last_block = atomicAdd(&a.counters[unit], 1) == a.nsplit - 1;
+  }
+  act3d_named_bar(8, 128 * G);
+  if (!last_block) return;
+  __threadfence();
+  const int gd = G * a.d;
+  for (int idx = threadIdx.x; idx < nr * gd; idx += 128 * G) {
+    const int lr = idx / gd;
+    const int hd = hg * G + (idx % gd) / a.d;
+    const int c = idx % a.d;
+    const size_t bl = (size_t)b * a.L + r0 + lr;
+    float m = -INFINITY;
+    for (int sp = 0; sp < a.nsplit; ++sp) {
+      m = fmaxf(m, __ldcg(a.part_ml + ((sp * bl_n + bl) * a.H + hd) * 2));
+    }
+    float l = 0.f, acc = 0.f;
+    for (int sp = 0; sp < a.nsplit; ++sp) {
+      const size_t ml = ((sp * bl_n + bl) * a.H + hd) * 2;
+      const float w = expf(__ldcg(a.part_ml + ml) - m);
+      l += __ldcg(a.part_ml + ml + 1) * w;
+      acc += __ldcg(a.part_acc + (sp * bl_n + bl) * E + hd * a.d + c) * w;
+    }
+    a.out[bl * E + hd * a.d + c] = act3d_to_bf16(acc * (inv_keep / l));
+    if (STATS && c == 0) {
+      a.stats[bl * (2 * a.H) + 2 * hd] = m;
+      a.stats[bl * (2 * a.H) + 2 * hd + 1] = l;
+    }
+  }
+}
+
+template <int DP, bool MASK, bool DROPOUT, bool STATS, bool PREP>
+cudaError_t launch_wg_dp(const WgFwdArgs& a, cudaStream_t stream) {
+  auto kernel = mha_fwd_bf16_wgmma_kernel<DP, MASK, DROPOUT, STATS, PREP>;
+  static bool sized = false;  // the attribute is a ceiling: set it once
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  if (PREP) {
+    const Act3dPrepArgs p{a.k, a.v, nullptr, nullptr, const_cast<char*>(a.keyrec), a.B, a.S,
+                          a.H, a.d, (a.S + kWgKeys - 1) / kWgKeys, 0u, 0u, 0u, 1.f};
+    const cudaError_t err = act3d_prep<DP, kFwdKeys>(p, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (a.nsplit > 1) {
+    const size_t units = (size_t)a.q_tiles * (a.H / a.G) * a.B;
+    const cudaError_t err = cudaMemsetAsync(a.counters, 0, units * sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(a.q_tiles * a.nsplit, a.H / a.G, a.B), 128 * a.G,
+           wg_fwd_smem(a.H * a.d, DP, a.G, PREP), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP, bool PREP>
+cudaError_t launch_wg_prep(const WgFwdArgs& a, bool masked, bool dropout, cudaStream_t stream) {
+  if (a.stats == nullptr) {  // the single-head-layout core: no dropout, no stats
+    return masked ? launch_wg_dp<DP, true, false, false, PREP>(a, stream)
+                  : launch_wg_dp<DP, false, false, false, PREP>(a, stream);
+  }
+  if (dropout) {
+    return masked ? launch_wg_dp<DP, true, true, true, PREP>(a, stream)
+                  : launch_wg_dp<DP, false, true, true, PREP>(a, stream);
+  }
+  return masked ? launch_wg_dp<DP, true, false, true, PREP>(a, stream)
+                : launch_wg_dp<DP, false, false, true, PREP>(a, stream);
+}
+
+template <int DP>
+cudaError_t launch_wg(const WgFwdArgs& a, bool masked, bool dropout, cudaStream_t stream) {
+  return a.keyrec ? launch_wg_prep<DP, true>(a, masked, dropout, stream)
+                  : launch_wg_prep<DP, false>(a, masked, dropout, stream);
+}
+
 bool bad_args(int B, int L, int S, int H, int d, int warps, int chunk, int nsplit,
               const void* stats, const void* work, int dropout) {
   const bool warps_ok = warps == 1 || warps == 2 || warps == 4 || warps == 8;
@@ -757,18 +1181,25 @@ extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
 }
 
 // The bf16 entry: the float32 entry's interface with q, k, v and out bf16
-// tensors (stats and work float32, the same sizes).  d is padded to 16, 32
-// or 64.
+// tensors (stats and work float32), and one more int, `group`, which picks
+// the body.  group = 0: the mma.sync body above with the float32 entry's
+// plan (warps, chunk, nsplit; d padded to 16, 32 or 64), for L <= 16 and
+// d > 32.
+// group >= 1: the wgmma body, `group` heads per block (1, 2 or 4, at most
+// 64 / DP, dividing H), ceil(L / 64) query tiles, the keys in `nsplit`
+// chunks of `chunk` keys; with nsplit > 1 `work` holds nsplit * B * L *
+// (E + 2H) floats (partial accumulators, then partial (m, l)) followed by
+// q_tiles * (H / group) * B int counters, zeroed here.  prep != 0 (the
+// wgmma body): a prep kernel first writes the key records (V^T and K,
+// act3d_record_bytes(kFwdKeys, DP) bytes per head and 64-key tile,
+// [b][tile][h]) to the start of `work`, the partials (if any) following.
 extern "C" int act3d_fused_mha_fwd_bf16(const void* q, const void* k,
                                         const void* v, const void* mask,
                                         void* out, void* stats, void* work, int B,
                                         int L, int S, int H, int d, int warps,
-                                        int chunk, int nsplit, int dropout,
-                                        unsigned int seed, unsigned int threshold,
+                                        int chunk, int nsplit, int dropout, int group,
+                                        int prep, unsigned int seed, unsigned int threshold,
                                         float inv_keep, unsigned int b0, void* stream) {
-  if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
-    return (int)cudaErrorInvalidValue;
-  }
   const Dropout drop{seed, threshold, inv_keep, b0};
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
@@ -779,6 +1210,34 @@ extern "C" int act3d_fused_mha_fwd_bf16(const void* q, const void* k,
   float* wf = static_cast<float*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool dr = dropout != 0;
+  const int dp = d <= 16 ? 16 : d <= 32 ? 32 : 64;
+  if (group != 0) {
+    const bool group_ok = (group == 1 || group == 2 || group == 4) && dp <= 32 &&
+                          group <= act3d_wg_max_group(dp) && H % group == 0;
+    if (bad_args(B, L, S, H, d, 1, chunk, nsplit, stats, work, dropout) || !group_ok ||
+        (prep && (work == nullptr || (nsplit > 1 && chunk % kWgKeys != 0))) ||
+        wg_fwd_smem(H * d, dp, group, prep != 0) > kMaxSmem) {
+      return (int)cudaErrorInvalidValue;
+    }
+    WgFwdArgs a{qh, kh, vh, mf, oh, sf, nullptr, nullptr, nullptr, nullptr,
+                B, L, S, H, d, group, (L + kWgRows - 1) / kWgRows, chunk, nsplit, drop};
+    float* w = wf;
+    if (prep) {
+      a.keyrec = reinterpret_cast<const char*>(w);
+      w += (size_t)B * ((S + kWgKeys - 1) / kWgKeys) * H * act3d_record_bytes(kFwdKeys, dp) / 4;
+    }
+    if (nsplit > 1) {
+      a.part_acc = w;
+      a.part_ml = w + (size_t)nsplit * B * L * H * d;
+      a.counters = reinterpret_cast<int*>(a.part_ml + (size_t)nsplit * B * L * H * 2);
+    }
+    const cudaError_t err = dp == 16 ? launch_wg<16>(a, mf != nullptr, dr, st)
+                                     : launch_wg<32>(a, mf != nullptr, dr, st);
+    return (int)err;
+  }
+  if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err;
   if (d <= 16) {
     err = launch_bf16<16>(dr, qh, kh, vh, mf, oh, sf, wf, B, L, S, H, d, warps, chunk,

@@ -39,14 +39,18 @@ and the stats stay float32, and values are rounded to bf16 where the TPU
 kernels round them (``ex.astype(v.dtype)`` before p v, dO scaled by r
 / (1 - rate), ds and q scaled by r before their products); the outputs are
 bf16.  The plain versions round at the same points, so that both compute
-JAX's function.  Each wrapper counts float32 launches in ``launches`` and
-bf16 launches in ``launches_bf16``.
+JAX's function.  The bf16 entries have two bodies, picked by shape in
+:func:`fwd_plan_bf16` / :func:`bwd_plan_bf16`: Hopper's wgmma with
+bulk-copy rings (``csrc/mha_wgmma_bf16.cuh``) and an mma.sync body for
+short query blocks and d > 32.  Each wrapper counts float32 launches in
+``launches`` and bf16 launches in ``launches_bf16``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -55,6 +59,8 @@ from . import count_launch
 __all__ = [
     "AttentionCore",
     "BwdPlan",
+    "WgBwdPlan",
+    "WgFwdPlan",
     "FusedMHA",
     "FwdPlan",
     "MAX_HEAD_DIM",
@@ -62,12 +68,15 @@ __all__ = [
     "attention_core_forward",
     "attention_core_reference",
     "bwd_plan",
+    "bwd_plan_bf16",
     "dropout_keep",
     "fused_mha_backward",
     "fused_mha_backward_reference",
     "fused_mha_forward",
     "fused_mha_forward_reference",
     "fwd_plan",
+    "fwd_plan_bf16",
+    "launch_plans",
 ]
 
 MAX_HEAD_DIM = 64
@@ -352,14 +361,246 @@ def bwd_plan(b: int, l: int, s: int, h: int, d: int,
                    1 + (key_tiles > 1) + (nsplit > 1))
 
 
-def _entry(source: str, name: str, n_pointers: int):
-    """The C entry ``name`` of ``source``: pointers, nine ints, the dropout
-    seed, threshold, 1/(1-rate) and batch offset b0, then the stream."""
+# The bf16 bodies on wgmma (csrc/mha_wgmma_bf16.cuh): 64-row query tiles
+# (wgmma's M), key tiles of WG_KEYS through a ring of WG_STAGES stages, 64-key
+# blocks in the backward's dk/dv pass, and up to WG_MAX_GROUP heads (one
+# warpgroup each) per block.  The plan constants below were chosen by
+# same-call A/Bs on the card (scripts/ab_fused_mha_plans.py, PERF.md): the
+# forward's head groups per batch row where a block's heads share staged
+# K/V slabs over several key tiles (two blocks share each tile's copies),
+# its heads per block where they share nothing (key records, or a single
+# key tile), the backward's most heads per block, the blocks wanted per
+# launch before the keys (forward, dq) or the rows (dk/dv) are split, the
+# fewest rows per dk/dv split, the fewest heads per block the dq pass goes
+# down to before it splits the keys, and the smallest key chunk.
+WG_ROWS = 64
+WG_KEYS = 64  # csrc/mha_wgmma_bf16.cuh's ACT3D_WG_KEY_TILE
+WG_STAGES = 4  # its ACT3D_WG_STAGES
+WG_MAX_GROUP = 4
+WG_FWD_HEAD_GROUPS = 2
+WG_FWD_SOLO_GROUP = 1
+WG_FWD_TARGET_BLOCKS = 132
+WG_FWD_MIN_CHUNK = 768
+WG_BWD_MAX_GROUP = 2
+WG_BWD_TARGET_BLOCKS = 528
+WG_BWD_MIN_ROWS = 384
+WG_DQ_TARGET_BLOCKS = 132
+WG_DQ_MIN_GROUP = 2
+# Shapes the mma.sync bf16 body keeps: the forward at L <= 16 (one row of a
+# 64-row wgmma tile), the backward at L <= 64 (one row tile per key block:
+# the mma.sync body's single pass beat the two wgmma passes there), and its
+# plans' blocks wanted before the keys (forward) or rows (backward) split.
+FWD_MMA_MAX_ROWS = 16
+BWD_MMA_MAX_ROWS = 64
+MMA_FWD_TARGET_BLOCKS = 528
+MMA_BWD_KEY_WARPS = 4
+_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+
+
+class WgFwdPlan(NamedTuple):
+    """Launch of the bf16 forward's wgmma body (``csrc/fused_mha_fwd.cu``,
+    ``mha_fwd_bf16_wgmma_kernel``): ``group`` heads per block, ``q_tiles``
+    tiles of 64 query rows, the keys cut into ``nsplit`` chunks of ``chunk``
+    keys.  With ``prep`` a prep kernel first writes the key records (each
+    head's operand tiles, read in place by the main kernel) to the
+    workspace; with nsplit > 1 the partial accumulators, partial (m, l) and
+    one int counter per tile and head group follow, the chunks combined in
+    the same launch by the last block of a tile."""
+
+    group: int
+    q_tiles: int
+    chunk: int
+    nsplit: int
+    prep: bool
+    blocks: int
+    workspace_floats: int
+    kernels: int
+
+
+class WgBwdPlan(NamedTuple):
+    """Launch of the bf16 backward's two wgmma passes (``csrc/fused_mha_bwd.cu``):
+    dk/dv over ``key_tiles`` tiles of 64 keys with ``group`` heads per block,
+    L cut into ``nsplit`` splits of ``rows_per_split`` rows (``dkv_floats``
+    of float32 dk/dv slabs and a summing kernel when nsplit > 1); dq over
+    ``q_tiles`` tiles of 64 rows with ``dq_group`` heads per block, the keys
+    in ``dq_nsplit`` chunks of ``dq_chunk`` keys (``dq_floats`` of partials
+    and counters when dq_nsplit > 1, combined in the same launch).  Two prep
+    kernels first write the row records (read by the dk/dv pass) and the key
+    records (read by the dq pass), ``record_floats`` at the start of the
+    workspace."""
+
+    group: int
+    key_tiles: int
+    rows_per_split: int
+    nsplit: int
+    dq_group: int
+    q_tiles: int
+    dq_chunk: int
+    dq_nsplit: int
+    blocks: int
+    dq_blocks: int
+    record_floats: int
+    dkv_floats: int
+    dq_floats: int
+    kernels: int
+
+    @property
+    def workspace_floats(self) -> int:
+        return self.record_floats + self.dkv_floats + self.dq_floats
+
+
+def _head_pad(d: int) -> int:
+    return 16 if d <= 16 else 32 if d <= 32 else 64
+
+
+def record_bytes(kind: str, dp: int) -> int:
+    """Bytes of one head's operand record over a 64-long tile
+    (csrc/mha_wgmma_bf16.cuh's act3d_record_bytes): "fwd_keys" V^T and K,
+    "dq_keys" K, V and K^T, "rows" q, dO, qf^T and dof^T, then m log2 e,
+    m, delta and the row key per row."""
+    op = 64 * dp * 2
+    return {"fwd_keys": 2 * op, "dq_keys": 3 * op, "rows": 4 * op + 4 * 64 * 4}[kind]
+
+
+def _align(x: int) -> int:
+    return _cdiv(x, 128) * 128
+
+
+def _run(nbytes: int) -> int:
+    """Shared bytes of a staged run: 16 more for where it lands."""
+    return _align(nbytes + 16)
+
+
+def wg_fwd_smem(e: int, dp: int, group: int, prep: bool = False) -> int:
+    """Shared bytes of a wgmma forward block (csrc/fused_mha_fwd.cu's
+    wg_fwd_smem): barriers, the ring (K, V and mask bytes of a key tile, or
+    each head's V^T and K from its record), the query tile, and without
+    records each head's operand buffers (K and V^T twice each)."""
+    op = 64 * dp * 2
+    stage = (group * 2 * op if prep else 2 * _run(WG_KEYS * e * 2)) + _run(WG_KEYS)
+    return 128 + WG_STAGES * stage + _run(WG_ROWS * e * 2) + (0 if prep else group * 4 * op)
+
+
+def wg_dkdv_smem(e: int, dp: int, group: int) -> int:
+    """Shared bytes of a dk/dv block (csrc/fused_mha_bwd.cu's wg_dkdv_smem):
+    K, V and mask bytes, and a ring of the group's row records."""
+    return 128 + 2 * _run(64 * e * 2) + _run(64) + WG_STAGES * group * record_bytes("rows", dp)
+
+
+def wg_dq_smem(e: int, h: int, dp: int, group: int) -> int:
+    """Shared bytes of a dq block (csrc/fused_mha_bwd.cu's wg_dq_smem): a
+    ring of the group's key records and mask bytes, and the row tile."""
+    stage = group * record_bytes("dq_keys", dp) + _run(WG_KEYS)
+    once = 2 * _run(WG_ROWS * e * 2) + _run(WG_ROWS * 2 * h * 4) + _run(WG_ROWS * h * 4)
+    return 128 + WG_STAGES * stage + once
+
+
+def _groups(h: int, d: int, max_group: int, fits) -> list:
+    """Heads per block the wgmma bodies can take at this shape, largest
+    first: powers of two up to max_group and 64 / DP that divide H and
+    whose block fits in shared memory; none for d > 32 (DP = 64 gave wrong
+    results on the card with several key tiles in a chunk, PERF.md), which
+    takes the mma.sync body."""
+    if d > 32:
+        return []
+    top = min(max_group, 64 // _head_pad(d))
+    return [g for g in (4, 2, 1) if g <= top and h % g == 0 and fits(g)]
+
+
+def _key_chunks(s: int, base: int, target: int, min_chunk: int):
+    """(chunk, nsplit): the keys cut so that base x nsplit blocks reach
+    ``target``, chunks a multiple of the key tile and at least min_chunk."""
+    chunk = s
+    if base < target:
+        per = _cdiv(s, _cdiv(target, base))
+        chunk = min(s, max(min_chunk, WG_KEYS * _cdiv(per, WG_KEYS)))
+    return chunk, _cdiv(s, chunk)
+
+
+def fwd_plan_bf16(b: int, l: int, s: int, h: int, d: int,
+                  target_blocks: int = WG_FWD_TARGET_BLOCKS,
+                  max_group: int = WG_MAX_GROUP, head_groups: int = WG_FWD_HEAD_GROUPS,
+                  solo_group: int = WG_FWD_SOLO_GROUP, min_chunk: int = WG_FWD_MIN_CHUNK,
+                  prep: bool = True, mma_target_blocks: int = MMA_FWD_TARGET_BLOCKS):
+    """The bf16 forward's plan.  L <= FWD_MMA_MAX_ROWS, d > 32 and shapes
+    whose block would not fit in shared memory take the mma.sync body with
+    :func:`fwd_plan` (at ``mma_target_blocks``); the rest the wgmma body,
+    with key records (``prep``) where several query tiles read each key
+    tile.  Heads per block (at most ``max_group``): ``solo_group`` where
+    they share nothing (records, or one key tile), H / ``head_groups``
+    where they share the staged K/V of several key tiles.  When query tiles
+    x head groups x B give fewer than ``target_blocks`` blocks, the keys
+    split into chunks so that the launch reaches it."""
+    dp = _head_pad(d)
+    groups = _groups(h, d, max_group, lambda g: wg_fwd_smem(h * d, dp, g) <= _SMEM_LIMIT)
+    if l <= FWD_MMA_MAX_ROWS or not groups:
+        return fwd_plan(b, l, s, h, d, target_blocks=mma_target_blocks)
+    q_tiles = _cdiv(l, WG_ROWS)
+    prep = prep and q_tiles > 1
+    want = max(1, h // head_groups) if not prep and s > WG_KEYS else solo_group
+    g = next((g for g in groups if g <= want), groups[-1])
+    prep = prep and wg_fwd_smem(h * d, dp, g, True) <= _SMEM_LIMIT
+    base = q_tiles * (h // g) * b
+    chunk, nsplit = _key_chunks(s, base, target_blocks, min_chunk)
+    work = b * _cdiv(s, WG_KEYS) * h * record_bytes("fwd_keys", dp) // 4 if prep else 0
+    if nsplit > 1:
+        work += nsplit * b * l * (h * d + 2 * h) + q_tiles * (h // g) * b
+    return WgFwdPlan(g, q_tiles, chunk, nsplit, prep, base * nsplit, work, 1 + prep)
+
+
+def bwd_plan_bf16(b: int, l: int, s: int, h: int, d: int,
+                  target_blocks: int = WG_BWD_TARGET_BLOCKS,
+                  max_group: int = WG_BWD_MAX_GROUP,
+                  dq_target_blocks: int = WG_DQ_TARGET_BLOCKS,
+                  dq_min_group: int = WG_DQ_MIN_GROUP, min_chunk: int = WG_FWD_MIN_CHUNK,
+                  min_rows: int = WG_BWD_MIN_ROWS,
+                  mma_key_warps: int = MMA_BWD_KEY_WARPS):
+    """The bf16 backward's plan.  L <= BWD_MMA_MAX_ROWS, d > 32 and shapes
+    that do not fit take the mma.sync body with :func:`bwd_plan` (at
+    ``mma_key_warps``).  Otherwise dk/dv: the most heads per block, L split
+    (64-row multiples, at least ``min_rows`` rows each: each split writes
+    float32 dk/dv slabs) when key tiles x head groups x B give fewer than
+    ``target_blocks``; dq: fewer heads per block (down to ``dq_min_group``)
+    and then key chunks until the launch has ``dq_target_blocks``; the row
+    and key records of every tile."""
+    e, dp = h * d, _head_pad(d)
+    groups = _groups(h, d, max_group, lambda g: wg_dkdv_smem(e, dp, g) <= _SMEM_LIMIT)
+    dq_groups = _groups(h, d, max_group, lambda g: wg_dq_smem(e, h, dp, g) <= _SMEM_LIMIT)
+    if l <= BWD_MMA_MAX_ROWS or not groups or not dq_groups:
+        return bwd_plan(b, l, s, h, d, key_warps=mma_key_warps)
+    g = groups[0]
+    key_tiles = _cdiv(s, 64)
+    base = key_tiles * (h // g) * b
+    rows = l
+    if base < target_blocks and l > WG_ROWS:
+        rows = WG_ROWS * _cdiv(_cdiv(l, _cdiv(target_blocks, base)), WG_ROWS)
+        rows = min(l, max(rows, min_rows))
+    nsplit = _cdiv(l, rows)
+    q_tiles = _cdiv(l, WG_ROWS)
+    dq_g = dq_groups[0]
+    for cand in dq_groups[1:]:
+        if q_tiles * (h // dq_g) * b >= dq_target_blocks or cand < dq_min_group:
+            break
+        dq_g = cand
+    dq_base = q_tiles * (h // dq_g) * b
+    dq_chunk, dq_nsplit = _key_chunks(s, dq_base, dq_target_blocks, min_chunk)
+    records = (b * q_tiles * h * record_bytes("rows", dp)
+               + b * key_tiles * h * record_bytes("dq_keys", dp)) // 4
+    dkv = 2 * nsplit * b * s * e if nsplit > 1 else 0
+    dq = dq_nsplit * b * l * e + dq_base if dq_nsplit > 1 else 0
+    return WgBwdPlan(g, key_tiles, rows, nsplit, dq_g, q_tiles, dq_chunk, dq_nsplit,
+                     base * nsplit, dq_base * dq_nsplit, records, dkv, dq, 4 + (nsplit > 1))
+
+
+def _entry(source: str, name: str, n_pointers: int, n_ints: int = 9):
+    """The C entry ``name`` of ``source``: pointers, ``n_ints`` ints, the
+    dropout seed, threshold, 1/(1-rate) and batch offset b0, then the
+    stream."""
     from . import _build
 
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
                        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -371,7 +612,7 @@ def _fwd_fn():
 
 
 def _fwd_bf16_fn():
-    return _entry(_FWD_SOURCE, "act3d_fused_mha_fwd_bf16", 7)
+    return _entry(_FWD_SOURCE, "act3d_fused_mha_fwd_bf16", 7, 11)
 
 
 def _bwd_fn():
@@ -379,7 +620,7 @@ def _bwd_fn():
 
 
 def _bwd_bf16_fn():
-    return _entry(_BWD_SOURCE, "act3d_fused_mha_bwd_bf16", 11)
+    return _entry(_BWD_SOURCE, "act3d_fused_mha_bwd_bf16", 11, 13)
 
 
 def _check(q, k, v, num_heads, mask, rate, seed, b0=0):
@@ -473,6 +714,34 @@ fused_mha_forward.launches_bf16 = 0  # bf16 kernel launches since the last reset
 
 
 
+_PLAN_CHOICE: dict = {}  # set by launch_plans()
+
+
+@contextlib.contextmanager
+def launch_plans(fwd: Optional[Callable] = None, bwd: Optional[Callable] = None):
+    """Inside the block the fused-MHA wrappers take a call's launch plan
+    from ``fwd(b, l, s, h, d, dtype)`` / ``bwd(...)`` where given and where
+    it returns a plan (None: the default plan).  Lets a script run one body
+    at chosen shapes, e.g. the mma.sync bf16 body through :func:`fwd_plan`."""
+    saved = dict(_PLAN_CHOICE)
+    _PLAN_CHOICE.update({k: fn for k, fn in (("fwd", fwd), ("bwd", bwd)) if fn is not None})
+    try:
+        yield
+    finally:
+        _PLAN_CHOICE.clear()
+        _PLAN_CHOICE.update(saved)
+
+
+def _plan(kind, dtype, b, l, s, h, d):
+    chosen = _PLAN_CHOICE.get(kind)
+    plan = chosen(b, l, s, h, d, dtype) if chosen else None
+    if plan is not None:
+        return plan
+    bf16 = dtype == torch.bfloat16
+    default = {"fwd": (fwd_plan, fwd_plan_bf16), "bwd": (bwd_plan, bwd_plan_bf16)}[kind][bf16]
+    return default(b, l, s, h, d)
+
+
 def _workspace(floats, device):
     return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
@@ -485,8 +754,16 @@ def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = Non
     s = k.shape[1]
     d = e // num_heads
     _check_cuda(mask, d, q.dtype, q=q, k=k, v=v)
-    plan = plan or fwd_plan(b, l, s, num_heads, d)
-    fn = (_fwd_fn if q.dtype == torch.float32 else _fwd_bf16_fn)()
+    bf16 = q.dtype == torch.bfloat16
+    plan = plan or _plan("fwd", q.dtype, b, l, s, num_heads, d)
+    dropout, *drop = _dropout_args(rate, seed, b0)
+    if isinstance(plan, WgFwdPlan):  # the bf16 entry's wgmma body
+        fn = _fwd_bf16_fn()
+        ints = (1, plan.chunk, plan.nsplit, dropout, plan.group, int(plan.prep))
+    elif bf16:  # its mma.sync body
+        fn, ints = _fwd_bf16_fn(), (plan.warps, plan.chunk, plan.nsplit, dropout, 0, 0)
+    else:
+        fn, ints = _fwd_fn(), (plan.warps, plan.chunk, plan.nsplit, dropout)
     out = torch.empty_like(q)
     stats = (torch.empty((b, l, 2 * num_heads), dtype=torch.float32, device=q.device)
              if with_stats else None)
@@ -498,8 +775,7 @@ def _run_fwd(q, k, v, num_heads, mask, rate, seed, plan: Optional[FwdPlan] = Non
             None if mask is None else mask.data_ptr(),
             out.data_ptr(), None if stats is None else stats.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, l, s, num_heads, d, plan.warps, plan.chunk, plan.nsplit,
-            *_dropout_args(rate, seed, b0), stream,
+            b, l, s, num_heads, d, *ints, *drop, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_fwd launch failed: CUDA error {rc}")
@@ -542,8 +818,18 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
     d = e // num_heads
     delta = _delta(out, grad_out, num_heads).contiguous()
     _check_cuda(mask, d, q.dtype, stats, q=q, k=k, v=v, grad_out=grad_out)
-    plan = plan or bwd_plan(b, l, s, num_heads, d)
-    fn = (_bwd_fn if q.dtype == torch.float32 else _bwd_bf16_fn)()
+    bf16 = q.dtype == torch.bfloat16
+    plan = plan or _plan("bwd", q.dtype, b, l, s, num_heads, d)
+    dropout, *drop = _dropout_args(rate, seed, b0)
+    if isinstance(plan, WgBwdPlan):  # the bf16 entry's two wgmma passes
+        fn = _bwd_bf16_fn()
+        ints = (1, plan.rows_per_split, plan.nsplit, dropout, plan.group, plan.dq_group,
+                plan.dq_chunk, plan.dq_nsplit)
+    elif bf16:  # its mma.sync body
+        fn = _bwd_bf16_fn()
+        ints = (plan.key_warps, plan.rows_per_split, plan.nsplit, dropout, 0, 0, 1, 1)
+    else:
+        fn, ints = _bwd_fn(), (plan.key_warps, plan.rows_per_split, plan.nsplit, dropout)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -556,8 +842,7 @@ def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
             None if mask is None else mask.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, l, s, num_heads, d, plan.key_warps, plan.rows_per_split, plan.nsplit,
-            *_dropout_args(rate, seed, b0), stream,
+            b, l, s, num_heads, d, *ints, *drop, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mha_bwd launch failed: CUDA error {rc}")
@@ -624,8 +909,8 @@ def attention_core_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_core(q, k, v, mask):
     """One call of the forward kernel as the core: one head, no stats."""
     bh, l, d = q.shape
-    out, _ = _run_fwd(q, k, v, 1, mask, 0.0, None, fwd_plan(bh, l, k.shape[1], 1, d),
-                      with_stats=False)
+    plan = (fwd_plan_bf16 if q.dtype == torch.bfloat16 else fwd_plan)(bh, l, k.shape[1], 1, d)
+    out, _ = _run_fwd(q, k, v, 1, mask, 0.0, None, plan, with_stats=False)
     count_launch(attention_core, q.dtype)
     return out
 

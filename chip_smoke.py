@@ -12,7 +12,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      through the same fp32_precision API and the environment.
   2. build: nvcc builds every CUDA source of the port for sm_90a (one nvcc
      per source, all started together); prints each kernel's ptxas report
-     (registers, spills).
+     (registers, spills) and, from cuobjdump -sass, the warpgroup products
+     (HGMMA) and bulk copies (UBLKCP) of the bf16 wgmma bodies, which must
+     hold both.
   3. kernel: the fused-MHA forward kernel against its plain PyTorch
      version at every attention shape of the serving keystep (plus a
      padded-key mask and a fully masked row), atol 2e-5 / rtol 1e-4 on
@@ -161,11 +163,18 @@ phases above:
      floor of float32 noise), stats at atol 2e-5 / rtol 1e-4, repeats
      bit-identical, the row scatters bit-exact, the dropout zero pattern the
      float32 kernel's for one seed; device times of each kernel, its plain
-     bf16 version and SDPA / scatter_ in bf16 beside the bf16 bound (989
-     TFLOP/s dense bf16, 3.35 TB/s).
+     bf16 version and SDPA / scatter_ in bf16 beside the bf16 bound (the
+     largest of the products at 989 TFLOP/s dense bf16, the exponentials
+     B*L*S*H at 132 x 16 per clock at the max SM clock, and the bytes at
+     3.35 TB/s; the line names which), and the body each site's plan chose
+     (the wgmma bodies, or mma.sync: forward L <= 16, backward L <= 64).
   9b. small bf16 steps: one step of a small ChainedDiffuser and Act3D in
-     bf16 on the card against the CPU: losses within 2e-2, the whole
-     gradient within cosine 0.99 / relative L2 5e-2, gradients float32.
+     bf16 on the card against the same step on the CPU: losses within 2e-2,
+     the whole gradient within cosine 0.99 / relative L2 5e-2, gradients
+     float32; the planner's card step carries the CPU step's cotangents back
+     from its L1 loss's regressor outputs (a sign the two devices' roundings
+     flip moves its gradient by several percent), its own distance and the
+     signs that differ printed.
  11b. train_bf16 / train_act3d_bf16: phases 10 and 11 with
      compute_dtype=torch.bfloat16: 19 + 19 and 18 + 18 + 2 launches of the
      bf16 entries per step and none of the float32 ones (Act3D's evaluation
@@ -272,18 +281,23 @@ from act3d_tpu_torch.device import CUDNN_HEURISTIC_MODE_B, float32_precision, re
 from act3d_tpu_torch.eval import main as eval_main
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.kernels import BWD_FLOOR, _build, bf16_errors
+from act3d_tpu_torch.kernels import attention as attention_kernels
 from act3d_tpu_torch.kernels import gather as gather_kernels
 from act3d_tpu_torch.kernels.attention import (
     attention_core,
     attention_core_forward,
     attention_core_reference,
+    WgBwdPlan,
+    WgFwdPlan,
     bwd_plan,
+    bwd_plan_bf16,
     dropout_keep,
     fused_mha_backward,
     fused_mha_backward_reference,
     fused_mha_forward,
     fused_mha_forward_reference,
     fwd_plan,
+    fwd_plan_bf16,
 )
 from act3d_tpu_torch.kernels.gather import (
     scatter_rows,
@@ -1212,10 +1226,42 @@ def phase_small_keypose(dev):
           f"{len(runs[0][1])} gradients bit-identical", flush=True)
 
 
-def bf16_bound(flops, nbytes):
-    """The bf16 bound: operations at the dense bf16 tensor-core peak, bytes
-    at 3.35 TB/s."""
-    return _bound_row(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+def bf16_bound(flops, nbytes, exps=0.0, sm_mhz=None):
+    """The bf16 bound: the larger of the operations (the products at the
+    dense bf16 tensor-core peak, or the exponentials on the special-function
+    units at the card's SM clock, whichever takes longer) and the bytes at
+    3.35 TB/s; ``bound_detail`` says which of the three it is."""
+    t_mma = flops / PEAK_BF16_FLOPS * 1e3
+    t_exp = exps / (EXP_PER_CLOCK * sm_mhz * 1e6) * 1e3 if exps else 0.0
+    row = _bound_row(max(t_mma, t_exp), nbytes / PEAK_BYTES * 1e3)
+    times = {"operations": t_mma, "exponentials": t_exp, "bytes": row["bytes_ms"]}
+    return dict(row, mma_ms=t_mma, exp_ms=t_exp, bound_detail=max(times, key=times.get))
+
+
+def bf16_body(plan) -> str:
+    """Which bf16 body a plan launches: the wgmma body, or the mma.sync body
+    (L <= 16, d > 32)."""
+    return "wgmma" if isinstance(plan, (WgFwdPlan, WgBwdPlan)) else "mma.sync"
+
+
+def sass_counts(path) -> dict:
+    """{kernel: {instruction: count}} of the wgmma kernels in a built
+    library (cuobjdump -sass): the warpgroup products (HGMMA) and the bulk
+    copies (UBLKCP), as the bf16 bodies must use them."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if "wgmma" in name else None
+            if name:
+                counts[name] = dict(HGMMA=0, UBLKCP=0)
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += op in line
+    return counts
 
 
 def bf16_mha_work(l, s, e, h, b, masked, backward):
@@ -1237,7 +1283,7 @@ def _bf16_row(errs, **extra):
                 plain_vs_f32=errs["plain_vs_f32"], err_bound=errs["bound"], **extra)
 
 
-def phase_kernels_bf16(dev, card):
+def phase_kernels_bf16(dev, card, sm_mhz):
     """The bf16 entries of every kernel at every shape the bf16 training
     steps launch, against their bf16 plain versions (which round where the
     TPU kernels round) and the float32 plain version on the same
@@ -1246,7 +1292,8 @@ def phase_kernels_bf16(dev, card):
     1e-4, repeats bit-identical, the row scatters bit-exact; the dropout
     zero pattern equal to the float32 kernel's for one seed; device times
     of each kernel, its bf16 plain version and one PyTorch call in bf16
-    (SDPA, scatter_) beside the bf16 bound."""
+    (SDPA, scatter_) beside the bf16 bound (the products, the exponentials
+    or the bytes), with the body each site's plan chose."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     side = torch.cuda.Stream()
     bf = torch.bfloat16
@@ -1311,20 +1358,23 @@ def phase_kernels_bf16(dev, card):
                             side) - lib_fwd
         common = dict(site=site, B=b, L=l, S=s, E=e, H=h, mask=kind, rate=rate,
                       per_step=per_step)
+        plans = fwd_plan_bf16(b, l, s, h, d), bwd_plan_bf16(b, l, s, h, d)
         rows["fused_mha_fwd_bf16"].append(_bf16_row(
             fwd, **common, ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
-            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, False)),
-            **plan_row(fwd_plan(b, l, s, h, d))))
+            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, False), b * l * s * h, sm_mhz),
+            body=bf16_body(plans[0]), **plan_row(plans[0])))
         worst = max(bwd, key=lambda x: x["kernel_vs_f32"] - x["bound"])
         rows["fused_mha_bwd_bf16"].append(_bf16_row(
             worst, **common, ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd,
-            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, True)),
-            **plan_row(bwd_plan(b, l, s, h, d))))
+            **bf16_bound(*bf16_mha_work(l, s, e, h, b, kind, True), b * l * s * h, sm_mhz),
+            body=bf16_body(plans[1]), **plan_row(plans[1])))
         fr, br = rows["fused_mha_fwd_bf16"][-1], rows["fused_mha_bwd_bf16"][-1]
-        print(f"kernels_bf16 {site:28s} fwd {fwd_ms:.4f} ms (plain bf16 {fwd_plain:.4f}, sdpa "
-              f"bf16 {lib_fwd:.4f}, bf16 bound {fr['bound_ms']:.5f} {fr['bound_by']}) | bwd "
-              f"{bwd_ms:.4f} ms (plain bf16 {bwd_plain:.4f}, sdpa bf16 {lib_bwd:.4f}, bf16 "
-              f"bound {br['bound_ms']:.5f} {br['bound_by']}) | {card}", flush=True)
+        print(f"kernels_bf16 {site:28s} fwd ({fr['body']} body, {fr['kernels_per_call']} "
+              f"device kernel(s)) {fwd_ms:.4f} ms (plain bf16 {fwd_plain:.4f}, sdpa bf16 "
+              f"{lib_fwd:.4f}, bf16 bound {fr['bound_ms']:.5f} {fr['bound_detail']}) | bwd "
+              f"({br['body']} body, {br['kernels_per_call']} device kernel(s)) {bwd_ms:.4f} ms "
+              f"(plain bf16 {bwd_plain:.4f}, sdpa bf16 {lib_bwd:.4f}, bf16 bound "
+              f"{br['bound_ms']:.5f} {br['bound_detail']}) | {card}", flush=True)
 
     # the dropout zero pattern: with v the identity of each head (S <= d),
     # out is the kept weights, zero where dropped
@@ -1356,20 +1406,23 @@ def phase_kernels_bf16(dev, card):
         iters = 20 if bh * l * s > 1e6 else 100
         attn_mask = None if mask is None else ~mask[:, None, None, :]
         nbytes = 2.0 * (2 * bh * l * 15 + 2 * bh * s * 15) + (bh * s if mask is not None else 0)
+        core_plan = fwd_plan_bf16(bh, l, s, 1, 15)
         rows["attention_core_bf16"].append(_bf16_row(
             errs, site=site, BH=bh, L=l, S=s, D=15, mask=kind, per_step=per_step,
+            body=bf16_body(core_plan), **plan_row(core_plan),
             ms=device_ms(lambda: attention_core_forward(q, k, v, mask), iters, side),
             plain_ms=device_ms(lambda: attention_core_reference(q, k, v, mask), iters, side),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q[:, None], k[:, None], v[:, None], attn_mask=attn_mask, scale=1.0),
                 iters, side),
-            **bf16_bound(4.0 * bh * l * s * 15, nbytes)))
+            **bf16_bound(4.0 * bh * l * s * 15, nbytes, bh * l * s, sm_mhz)))
         r = rows["attention_core_bf16"][-1]
         print(f"kernels_bf16 attention_core {site:20s} BH={bh} L={l} S={s}: vs plain bf16 "
               f"{r['max_abs_err']:.3e}, vs float32 kernel {r['kernel_vs_f32']:.3e} plain "
-              f"{r['plain_vs_f32']:.3e} (bound {r['err_bound']:.3e}) | {r['ms']:.4f} ms (plain "
-              f"bf16 {r['plain_ms']:.4f}, sdpa bf16 {r['library_ms']:.4f}, bf16 bound "
-              f"{r['bound_ms']:.5f} {r['bound_by']}) | {card}", flush=True)
+              f"{r['plain_vs_f32']:.3e} (bound {r['err_bound']:.3e}) | {r['body']} body "
+              f"{r['ms']:.4f} ms (plain bf16 {r['plain_ms']:.4f}, sdpa bf16 "
+              f"{r['library_ms']:.4f}, bf16 bound {r['bound_ms']:.5f} {r['bound_detail']}) | "
+              f"{card}", flush=True)
 
     # the row scatters at the Act3D fine level, bit-exact
     b, kk, p, c = GATHER_B, GATHER_K, GATHER_P, GATHER_C
@@ -1402,18 +1455,76 @@ def phase_kernels_bf16(dev, card):
     return rows
 
 
-def phase_small_bf16(dev):
-    """One small bf16 step of each model on the card against the same step
-    on the CPU (plain versions; the same weights, injected draws, dropout
-    off): the losses within 2e-2 relative and the whole trained gradient
-    within cosine 0.99 / relative L2 5e-2, the bounds of
-    tests/test_torch_bf16.py against JAX; every gradient float32."""
+def loss_cotangents(model, is_output, replace=None):
+    """Forward hooks on the modules ``is_output(name)`` picks (the outputs
+    the loss reads).  Returns (record, handles): the backward records each
+    output's incoming gradient (the loss's cotangent) in ``record``, on the
+    CPU, in the order of the forward calls; with ``replace`` (another step's
+    record) it carries that gradient on instead of its own."""
+    record, handles = [], []
+
+    def hook(module, inputs, out):
+        i = len(record)
+        record.append(None)
+
+        def swap(grad):
+            record[i] = grad.detach().cpu()
+            if replace is not None:
+                return replace[i].to(grad.device, grad.dtype)
+            return None
+
+        out.register_hook(swap)
+
+    for name, module in model.named_modules():
+        if is_output(name):
+            handles.append(module.register_forward_hook(hook))
+    return record, handles
+
+
+def _cos_rel(got, want):
+    """Cosine similarity and relative L2 distance of two gradient dicts,
+    every tensor concatenated."""
+    a, b = (torch.cat([g[n].flatten() for n in want]) for g in (got, want))
+    return F.cosine_similarity(a, b, dim=0).item(), ((a - b).norm() / b.norm()).item()
+
+
+def diffusion_outputs(name: str) -> bool:
+    """The planner's regressor outputs, which its L1 loss reads."""
+    return "_regressor_" in name and name.endswith("_fc2")
+
+
+def small_bf16_step(model, device, run, is_output=None, replace=None):
+    """One small bf16 step: (loss, {name: float64 gradient on the CPU} of
+    every trained tensor but the backbone's, the loss's cotangents at the
+    ``is_output`` modules (loss_cotangents; [] without), every gradient
+    float32."""
+    model.zero_grad(set_to_none=True)
+    record, handles = loss_cotangents(model, is_output or (lambda n: False), replace)
+    try:
+        loss = run(model, device)
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+             if p.grad is not None and "backbone" not in n}
+    assert loss.dtype == torch.float32 and all(
+        p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
+    return loss.item(), grads, record
+
+
+def small_bf16_setup(planner_batch: int = 8):
+    """Phase 9b's two small models' configurations, steps (model, device)
+    -> loss with injected draws and dropout off, and loss outputs.  The
+    planner's batch: 8 (the phase) or 2, where its card gradient is
+    ill-conditioned (PERF.md)."""
     criterion = KeyposeLossAndMetrics()
     rng = np.random.default_rng(SEED)
     lo, hi = np.asarray(BOUNDS, np.float32)
-    traj = synthetic_trajectory_batch(2, 2, (64, 64), 8, seed=SEED)
+    traj = synthetic_trajectory_batch(planner_batch, 2, (64, 64), 8, seed=SEED)
     traj["trajectory_mask"][1, -3:] = True
-    noise = torch.from_numpy(rng.normal(size=(2, 8, 9)).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(planner_batch, 8, 9)).astype(np.float32))
+    timesteps = torch.tensor([3, 71, 20, 90] * 2)[:planner_batch]
     kp = synthetic_keypose_batch(2, 1, (128, 128), seed=SEED)
     ghosts = [torch.from_numpy(rng.uniform(lo, hi, (2, 20, 3)).astype(np.float32))
               for _ in range(2)]
@@ -1421,7 +1532,7 @@ def phase_small_bf16(dev):
     def diffusion(model, device):
         batch = {k: v.to(device) for k, v in traj.items()}
         return diffusion_loss(model.eval(), batch, None, torch.bfloat16,
-                              noise=noise.to(device), timesteps=torch.tensor([3, 71]).to(device))
+                              noise=noise.to(device), timesteps=timesteps.to(device))
 
     def keypose(model, device):
         batch = {k: v.to(device) for k, v in kp.items()}
@@ -1429,34 +1540,53 @@ def phase_small_bf16(dev):
                             ghost_points_override=[x.to(device) for x in ghosts])
         return sum(criterion.compute_loss(pred, batch["action"]).values())
 
-    for name, make, cfg, run in (
-            ("diffusion", make_diffusion_model,
+    return (("diffusion", make_diffusion_model,
              dict(image_size=(64, 64), embedding_dim=24, num_query_cross_attn_layers=3),
-             diffusion),
+             diffusion, diffusion_outputs),
             ("keypose", make_keypose_model,
              dict(image_size=(128, 128), embedding_dim=24, num_ghost_points=40,
-                  num_sampling_level=2), keypose)):
+                  num_sampling_level=2), keypose, None))
+
+
+def phase_small_bf16(dev):
+    """One small bf16 step of each model on the card against the same step
+    on the CPU (the same weights, injected draws, dropout off): the loss
+    within 2e-2 relative, the whole trained gradient within cosine 0.99 /
+    relative L2 5e-2 (the bounds of tests/test_torch_bf16.py against JAX),
+    every gradient float32.  The planner's loss is an L1 of its regressor
+    outputs, whose gradient is the sign of each error: an error the two
+    devices' roundings put on either side of 0 flips a sign and moves the
+    whole gradient by several percent.  So the planner's card step carries
+    the CPU step's cotangents back from the regressor outputs, which holds
+    everything the card computes under them (every fused-MHA forward and
+    backward included) to the CPU step's; the distance of its own gradient
+    and the signs that differ are printed.  At batch 8 one bf16 ulp on one
+    attention output element moves that gradient 0.06%, where at batch 2
+    the regressors' ReLUs moved it 4.2% (PERF.md)."""
+    for name, make, cfg, run, is_output in small_bf16_setup():
         torch.manual_seed(SEED)
         cpu_model = make(**cfg, device="cpu")
         card_model = make(**cfg, device=dev)
         card_model.load_state_dict(cpu_model.state_dict())
-        out = []
-        for model, device in ((cpu_model, "cpu"), (card_model, dev)):
-            loss = run(model, device)
-            loss.backward()
-            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
-                     if p.grad is not None and "backbone" not in n}
-            assert loss.dtype == torch.float32 and all(
-                p.grad.dtype == torch.float32 for p in model.parameters() if p.grad is not None)
-            out.append((loss.item(), grads))
-        (cpu_loss, cpu_grads), (card_loss, card_grads) = out
-        assert cpu_grads.keys() == card_grads.keys() and len(cpu_grads) > 50
-        gc_, gg = (torch.cat([g[n].flatten() for n in cpu_grads]) for g in (cpu_grads, card_grads))
-        cos = F.cosine_similarity(gg, gc_, dim=0).item()
-        rel = ((gg - gc_).norm() / gc_.norm()).item()
-        print(f"small bf16 {name} step: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; "
-              f"{len(cpu_grads)} gradients, card vs CPU cosine {cos:.5f}, relative L2 "
-              f"{rel:.3e}", flush=True)
+        cpu_loss, cpu_grads, cpu_cot = small_bf16_step(cpu_model, "cpu", run, is_output)
+        card_loss, card_grads, card_cot = small_bf16_step(card_model, dev, run, is_output)
+        assert cpu_grads.keys() == card_grads.keys()
+        assert len(cpu_grads) > 50
+        own_cos, own_rel = _cos_rel(card_grads, cpu_grads)
+        line = (f"small bf16 {name} step: loss card {card_loss:.6f} cpu {cpu_loss:.6f}; "
+                f"{len(cpu_grads)} gradients, card vs CPU cosine {own_cos:.5f}, relative L2 "
+                f"{own_rel:.3e}")
+        cos, rel = own_cos, own_rel
+        if is_output:
+            assert len(cpu_cot) == len(card_cot) > 0
+            flips = sum(int((torch.sign(a) != torch.sign(b)).sum())
+                        for a, b in zip(card_cot, cpu_cot))
+            total = sum(a.numel() for a in cpu_cot)
+            _, held_grads, _ = small_bf16_step(card_model, dev, run, is_output, cpu_cot)
+            cos, rel = _cos_rel(held_grads, cpu_grads)
+            line += (f" ({flips} of {total} loss cotangent signs differ); with the CPU "
+                     f"step's cotangents cosine {cos:.5f}, relative L2 {rel:.3e}")
+        print(line, flush=True)
         assert abs(card_loss - cpu_loss) <= 2e-2 * abs(cpu_loss), (card_loss, cpu_loss)
         assert cos >= 0.99 and rel <= 5e-2, (cos, rel)
 
@@ -3093,6 +3223,12 @@ def main() -> int:
                     line = line.split("'")[1] if "'" in line else line
                 if "registers" in line or "spill" in line or line.startswith("_Z"):
                     print(f"ptxas {src}: {line.strip()}", flush=True)
+        if src in ("fused_mha_fwd.cu", "fused_mha_bwd.cu"):
+            sass = sass_counts(path)
+            for name, counts in sass.items():
+                print(f"sass {src}: {name}: {counts}", flush=True)
+            # the bf16 bodies run on Hopper's warpgroup products and bulk copies
+            assert sass and all(c["HGMMA"] and c["UBLKCP"] for c in sass.values()), sass
 
     main_path = {}  # the launches of every kernel in each main-path phase
 
@@ -3126,7 +3262,7 @@ def main() -> int:
     gather_rows = phase_gather_kernels(dev, card)
     core_rows = phase_attention_core(dev, card, sm_mhz)
     chunked_row = phase_chunked(dev, card)
-    bf16_rows = phase_kernels_bf16(dev, card)
+    bf16_rows = phase_kernels_bf16(dev, card, sm_mhz)
     offset_s = phase_kernels_dropout_offset(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
@@ -3356,12 +3492,12 @@ def main() -> int:
     for base, (source, replaces) in bf16_sources.items():
         name = f"{base}_bf16"
         shape_rows = bf16_rows[name]
+        unit_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms", "mma_ms",
+                     "exp_ms")
         if len(shape_rows) == 1:
-            unit = {k: shape_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                  "ops_ms", "bytes_ms")}
+            unit = {k: shape_rows[0][k] for k in unit_keys}
         else:
-            unit = {k: per_unit(shape_rows, (k, "per_step"))
-                    for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
+            unit = {k: per_unit(shape_rows, (k, "per_step")) for k in unit_keys}
         kernels.append({
             "name": name, "route": "cuda", "source": f"act3d_tpu_torch/{source}",
             "replaces": f"act3d_tpu/kernels/{replaces}", "launches": launches[name],

@@ -22,11 +22,14 @@ import torch
 
 from ..device import resolve_device
 from ..models import Act3D, DiffusionPlanner, compute_trajectory
+from ..utils.spans import span
 
 __all__ = ["Actioner"]
 
 
 class Actioner:
+    keysteps = 0  # keysteps predicted by every Actioner of this process
+
     def __init__(
         self,
         keypose_model: Optional[Act3D] = None,
@@ -90,40 +93,47 @@ class Actioner:
         ``last_phase_seconds``.  ``ghost_points_override`` (per-level
         (1, N, 3) tensors) and ``noise`` (see ``compute_trajectory``)
         replace the draws from the Actioner's generator, so a comparison
-        can feed two implementations the same numbers."""
+        can feed two implementations the same numbers.  The keystep runs
+        in span "keystep", its models in "keystep.act3d" and
+        "keystep.sampler" (``utils/spans.py``)."""
         if self._instr is None:
             raise ValueError("call load_episode first")
-        rgbs = self._tensor(rgbs) / 2 + 0.5  # to [0, 1]
-        pcds = self._tensor(pcds)
-        gripper = self._tensor(gripper)
-        output: Dict[str, Optional[np.ndarray]] = {}
-        clock = [self._mark(timed)]
+        Actioner.keysteps += 1
+        with span("keystep"):
+            rgbs = self._tensor(rgbs) / 2 + 0.5  # to [0, 1]
+            pcds = self._tensor(pcds)
+            gripper = self._tensor(gripper)
+            output: Dict[str, Optional[np.ndarray]] = {}
+            clock = [self._mark(timed)]
 
-        if self._predict_keypose:
-            pred = self.keypose_model(
-                rgbs, pcds, self._instr, gripper, generator=self._generator,
-                ghost_points_override=ghost_points_override,
-            )
-            action = torch.cat([pred["position"], pred["rotation"], pred["gripper"]], dim=1)
-            output["coarse_position"] = pred["position_pyramid"][0].reshape(-1, 3)[-1]
-            output["fine_position"] = pred["position"].reshape(-1, 3)[-1]
-        else:
-            action = self._tensor(gt_action)[:, -1]
-        clock.append(self._mark(timed))
+            with span("keystep.act3d"):
+                if self._predict_keypose:
+                    pred = self.keypose_model(
+                        rgbs, pcds, self._instr, gripper, generator=self._generator,
+                        ghost_points_override=ghost_points_override,
+                    )
+                    action = torch.cat([pred["position"], pred["rotation"], pred["gripper"]],
+                                       dim=1)
+                    output["coarse_position"] = pred["position_pyramid"][0].reshape(-1, 3)[-1]
+                    output["fine_position"] = pred["position"].reshape(-1, 3)[-1]
+                else:
+                    action = self._tensor(gt_action)[:, -1]
+            clock.append(self._mark(timed))
 
-        traj = None
-        if self._predict_trajectory:
-            traj = compute_trajectory(
-                self.traj_model,
-                torch.as_tensor(np.asarray(trajectory_mask, bool), device=self.device),
-                rgbs, pcds, self._instr,
-                gripper[:, : self._action_dim], action[:, : self._action_dim],
-                generator=self._generator, noise=noise,
-            )
-        clock.append(self._mark(timed))
-        if timed:
-            self.last_phase_seconds = {"act3d": clock[1] - clock[0],
-                                       "sampler": clock[2] - clock[1]}
-        output["action"] = action
-        output["trajectory"] = traj
-        return {k: None if v is None else v.cpu().numpy() for k, v in output.items()}
+            traj = None
+            if self._predict_trajectory:
+                with span("keystep.sampler"):
+                    traj = compute_trajectory(
+                        self.traj_model,
+                        torch.as_tensor(np.asarray(trajectory_mask, bool), device=self.device),
+                        rgbs, pcds, self._instr,
+                        gripper[:, : self._action_dim], action[:, : self._action_dim],
+                        generator=self._generator, noise=noise,
+                    )
+            clock.append(self._mark(timed))
+            if timed:
+                self.last_phase_seconds = {"act3d": clock[1] - clock[0],
+                                           "sampler": clock[2] - clock[1]}
+            output["action"] = action
+            output["trajectory"] = traj
+            return {k: None if v is None else v.cpu().numpy() for k, v in output.items()}

@@ -5,7 +5,9 @@ Each source is compiled on first use into a shared library with a plain
 C interface, under ``act3d_tpu_torch/_build/`` (listed in .gitignore),
 named by a hash of the source, every header of ``csrc/`` and the flags, so
 an edited source or shared header rebuilds.  Nothing here runs at import
-time.
+time.  ``NVCC_SECONDS`` counts the host seconds this process waited on
+nvcc, ``LOAD_SECONDS`` those it spent loading the libraries besides
+(hashing the sources, ``ctypes``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -29,6 +32,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+NVCC_SECONDS = 0.0  # host seconds build() waited on nvcc in this process
+LOAD_SECONDS = 0.0  # host seconds in load()'s first call of each source, nvcc's left out
 
 
 def nvcc_path() -> str:
@@ -57,12 +62,14 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
     together.  Returns {source: library path}; raises on a failed build.
     The ptxas report (registers, shared memory, spills) of each build is
     kept beside the library as ``<name>.log``."""
+    global NVCC_SECONDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {s: library_path(s) for s in sources}
     todo = {s: p for s, p in paths.items() if not p.exists()}
     if not todo:
         return paths
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     procs = {}
     for s, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
@@ -78,6 +85,7 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
             failed.append(f"{s} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, todo[s])
+    NVCC_SECONDS += time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
@@ -85,8 +93,11 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of one source, building it if needed."""
+    global LOAD_SECONDS
     lib = _LOADED.get(source)
     if lib is None:
+        t0, nvcc0 = time.perf_counter(), NVCC_SECONDS
         lib = ctypes.CDLL(str(build([source])[source]))
+        LOAD_SECONDS += time.perf_counter() - t0 - (NVCC_SECONDS - nvcc0)
         _LOADED[source] = lib
     return lib

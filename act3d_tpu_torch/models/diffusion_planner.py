@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..nn.dropout import Generators, draw
 from ..ops import rotations as R
 from ..ops.schedulers import make_ddpm_schedule
+from ..utils.spans import span
 from .diffusion_head import DiffusionHead
 
 
@@ -229,14 +230,16 @@ def compute_trajectory(
     which draw at the global batch: nn/dropout.py), or from ``noise = (init_noise
     (B, L, D), step_noises (T, B, L, D))``, D = ``model.internal_dim``, so a
     test can feed the exact numbers of another implementation.  Non-6D
-    quaternions are normalised after the last step, as in JAX.
+    quaternions are normalised after the last step, as in JAX.  Spans:
+    "sampler.encode", and "sampler.denoise_step" around each step.
     """
     b, length = trajectory_mask.shape
     d = model.internal_dim
     n_steps = model.diffusion_timesteps
     dev = trajectory_mask.device
-    context, curr, goal = model.encode(rgb_obs, pcd_obs, instruction, curr_gripper,
-                                       goal_gripper)
+    with span("sampler.encode"):
+        context, curr, goal = model.encode(rgb_obs, pcd_obs, instruction, curr_gripper,
+                                           goal_gripper)
 
     # start pose at index 0; with use_goal_at_test the goal pose at the last
     # valid index and everything after it held fixed
@@ -259,16 +262,17 @@ def compute_trajectory(
     else:
         trajectory = noise[0] + cond_data
     for i, t in enumerate(range(n_steps - 1, -1, -1)):
-        out = model.denoise_step(trajectory, trajectory_mask,
-                                 torch.full((b,), t, device=dev), context)
-        out = torch.where(cond_mask, cond_data, out)
-        if t == 0:
-            trajectory = out  # the final step keeps the raw prediction
-            break
-        eps = randn() if noise is None else noise[1][i]
-        pos = model.pos_schedule.step(out[..., :3], t, trajectory[..., :3], eps[..., :3])
-        rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
-        trajectory = torch.cat([pos, rot], dim=-1)
+        with span("sampler.denoise_step"):
+            out = model.denoise_step(trajectory, trajectory_mask,
+                                     torch.full((b,), t, device=dev), context)
+            out = torch.where(cond_mask, cond_data, out)
+            if t == 0:
+                trajectory = out  # the final step keeps the raw prediction
+                break
+            eps = randn() if noise is None else noise[1][i]
+            pos = model.pos_schedule.step(out[..., :3], t, trajectory[..., :3], eps[..., :3])
+            rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
+            trajectory = torch.cat([pos, rot], dim=-1)
 
     if model.rotation_parametrization != "6D":
         trajectory = torch.cat([trajectory[..., :3], R.normalise_quat(trajectory[..., 3:7]),

@@ -19,6 +19,9 @@ launch argument, so no host-device sync happens per call; the keep mask
 is the kernels' hash of (seed, dropout_b0 + b, h, row, col), with
 ``dropout_b0`` the rows' offset in the global batch under data
 parallelism (every rank draws the same seed).
+
+``multi_head_attention.calls`` counts the calls, slot competition or
+not, whatever the core ran on: the kernels count their own launches.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ def multi_head_attention(
     dropout_rate > 0 drops attention weights, seeded from the host
     ``generator``, the rows keyed from ``dropout_b0`` in the global batch.
     Returns (B, L, E) after the output projection."""
+    multi_head_attention.calls += 1
     seed = None
     if dropout_rate > 0.0:  # one int31 seed per call, drawn on the host
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
@@ -106,3 +110,6 @@ def multi_head_attention(
         out = FusedMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), num_heads,
                              key_padding_mask, float(dropout_rate), seed, dropout_b0)
     return F.linear(out, params.wo, params.bo)
+
+
+multi_head_attention.calls = 0  # calls in this process, whichever core they took

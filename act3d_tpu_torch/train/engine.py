@@ -27,6 +27,7 @@ from ..nn.dropout import Generators
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import all_gather_metrics
 from .optim import GradientAccumulator, freeze_backbone, make_optimizer
+from ..utils.spans import span
 
 __all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume",
            "summary_writer_class"]
@@ -171,15 +172,20 @@ class Trainer:
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward, and an optimizer step every
         ``accumulate_grad_batches`` calls.  The loss comes back as a device
-        tensor (no sync)."""
-        self.runner.train()
-        steps = self.accumulator.count + 1 == self.accumulator.every_k
-        with pmesh.set_gradient_sync(self.runner, steps):
-            loss, aux = self.runner(self._loss_fn, batch, self.generators)
-            loss.backward()
-        self.accumulator.step()
-        self.step_count += 1
-        return {"loss": loss.detach(), **(aux or {})}
+        tensor (no sync).  Spans: "train.step" around it, "train.forward",
+        "train.backward" and "train.optimizer" inside."""
+        with span("train.step"):
+            self.runner.train()
+            steps = self.accumulator.count + 1 == self.accumulator.every_k
+            with pmesh.set_gradient_sync(self.runner, steps):
+                with span("train.forward"):
+                    loss, aux = self.runner(self._loss_fn, batch, self.generators)
+                with span("train.backward"):
+                    loss.backward()
+            with span("train.optimizer"):
+                self.accumulator.step()
+            self.step_count += 1
+            return {"loss": loss.detach(), **(aux or {})}
 
     def eval_step(self, batch) -> Dict[str, torch.Tensor]:
         """The metrics of one batch as ``metrics_fn`` returns them

@@ -8,6 +8,10 @@ port's counterpart of ``act3d_tpu/utils/xplane.py::op_self_times`` /
 ``top_ops`` for its own trace format): per event name, the summed duration
 and the number of events of one category, the device kernels
 (``"kernel"``) by default.
+
+The port's spans (``utils/spans.py::span``, re-exported here) are
+``user_annotation`` events of such a trace while a profiler runs;
+``span_times`` credits each device event to the spans open at its launch.
 """
 
 from __future__ import annotations
@@ -17,11 +21,14 @@ import json
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["StepTimer", "trace", "TRACE_FILE", "kernel_times", "top_kernels"]
+from ..utils.spans import NO_SPAN, span
+
+__all__ = ["StepTimer", "trace", "TRACE_FILE", "kernel_times", "top_kernels", "span",
+           "NO_SPAN", "span_times", "SpanTimes", "union_us"]
 
 TRACE_FILE = "trace.json"  # the Chrome trace ``trace`` writes into its log_dir
 
@@ -114,3 +121,92 @@ def top_kernels(trace_path, k: int = 20, category: str = "kernel") -> List[Tuple
     """The top-k event names by summed duration: [(name, ms, count)]."""
     ranked = sorted(kernel_times(trace_path, category).items(), key=lambda kv: -kv[1]["us"])
     return [(name, row["us"] / 1e3, row["count"]) for name, row in ranked[:k]]
+
+
+# ---------------------------------------------------------------- spans
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+class SpanTimes(NamedTuple):
+    """``span_times``'s reading (microseconds): ``by_span`` maps a span name
+    to {"count": spans of that name, "busy_us": the union of the device
+    intervals its spans own, "kernels": {device event name: summed us}};
+    ``busy_us`` is the union of every device interval, ``unowned_us`` the
+    union of those no span owns."""
+
+    by_span: Dict[str, Dict]
+    busy_us: float
+    unowned_us: float
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def span_times(trace, exclude=()) -> SpanTimes:
+    """Device time by span of a Chrome trace (a path, or its events).
+
+    The spans are the ``user_annotation`` events (``span``'s
+    ``record_function`` ranges) not named in ``exclude``.  A device event
+    (kernel, copy, memset) belongs to every span whose host interval holds
+    the host time of its launch call: the ``cuda_runtime`` or
+    ``cuda_driver`` event with the same ``args.correlation``, on whatever
+    thread it ran (autograd's thread launches the backward while the
+    caller's span is open).  Host and device events share the trace's
+    clock."""
+    if isinstance(trace, (str, Path)):
+        with open(trace) as f:
+            trace = json.load(f)["traceEvents"]
+    launch, marks, device = {}, [], []
+    for ev in trace:
+        if ev.get("ph") != "X":
+            continue
+        cat, ts = ev.get("cat"), float(ev.get("ts", 0.0))
+        if cat in LAUNCH_CATEGORIES:
+            corr = (ev.get("args") or {}).get("correlation")
+            if corr is not None:
+                launch[corr] = ts
+        elif cat == "user_annotation" and ev["name"] not in exclude:
+            marks.append((ts, ts + float(ev.get("dur", 0.0)), ev["name"]))
+        elif cat in DEVICE_CATEGORIES:
+            device.append((ev, ts, ts + float(ev.get("dur", 0.0))))
+    by_span: Dict[str, Dict] = {}
+    for _, _, name in marks:
+        row = by_span.setdefault(name, {"count": 0, "busy_us": 0.0, "kernels": defaultdict(float)})
+        row["count"] += 1
+    owned: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
+    unowned: List[Tuple[float, float]] = []
+    # launches in time order against the spans in start order, keeping the open ones
+    marks.sort()
+    keyed = sorted(((launch.get((ev.get("args") or {}).get("correlation")), i)
+                    for i, (ev, _, _) in enumerate(device)),
+                   key=lambda x: (x[0] is None, x[0] or 0.0))
+    active: List[Tuple[float, float, str]] = []
+    nxt = 0
+    for t, i in keyed:
+        ev, start, end = device[i]
+        names = set()
+        if t is not None:
+            while nxt < len(marks) and marks[nxt][0] <= t:
+                active.append(marks[nxt])
+                nxt += 1
+            active = [m for m in active if m[1] >= t]
+            names = {m[2] for m in active}
+        for name in names:
+            owned[name].append((start, end))
+            by_span[name]["kernels"][ev["name"]] += end - start
+        if not names:
+            unowned.append((start, end))
+    for name, row in by_span.items():
+        row["busy_us"] = union_us(owned[name])
+        row["kernels"] = dict(row["kernels"])
+    return SpanTimes(by_span, union_us([(s, e) for _, s, e in device]), union_us(unowned))

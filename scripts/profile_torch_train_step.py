@@ -17,6 +17,8 @@ warm-up Trainer steps, then one step under torch.profiler, and prints:
     row scatter, GEMM, other), the kernel launch count, and the device time
     of the port's kernels (fused_mha_fwd, fused_mha_bwd, and for Act3D the
     row-scatter kernels);
+  * the device busy time of the step's spans (train.step, train.forward,
+    train.backward, train.optimizer: train/profiling.py::span_times);
   * peak device memory of the frozen visual trunk alone (no grad), of the
     loss forward, and of forward + backward + AdamW.
 The Chrome trace goes to <out>/<model>[_bf16]_train_step_trace.json.gz
@@ -43,10 +45,8 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-sys.path.insert(0, str(REPO / "scripts"))
 
 import chip_smoke as cs  # noqa: E402
-from profile_torch_keystep import _union_us  # noqa: E402
 
 from act3d_tpu_torch.train.engine import Trainer  # noqa: E402
 from act3d_tpu_torch.train.flagship import (  # noqa: E402
@@ -57,6 +57,7 @@ from act3d_tpu_torch.train.flagship import (  # noqa: E402
     make_keypose_model,
 )
 from act3d_tpu_torch.train.losses import KeyposeLossAndMetrics  # noqa: E402
+from act3d_tpu_torch.train.profiling import span_times, union_us  # noqa: E402
 from act3d_tpu_torch.utils.testing import (  # noqa: E402
     synthetic_keypose_batch,
     synthetic_trajectory_batch,
@@ -159,7 +160,7 @@ def main() -> int:
         intervals.append((start, end))
         by_name[e.name][0] += 1
         by_name[e.name][1] += end - start
-    busy_us = _union_us(intervals)
+    busy_us = union_us(intervals)
     casts = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::_to_copy"]
 
@@ -182,7 +183,7 @@ def main() -> int:
         # as ToCopyBackward): the params' bf16 copies under --mixed_precision 1
         "host_casts": len(casts),
         "host_cast_ms": sum(e.cpu_time_total for e in casts) / 1e3,
-        "fused_mha_fwd_ms": kernel_ms("fused_mha_fwd"),
+        "fused_mha_fwd_ms": kernel_ms("mha_fwd"),
         "fused_mha_bwd_ms": kernel_ms("mha_bwd"),
         "scatter_rows_ms": kernel_ms("scatter_rows"),
         "kernel_ms_by_kind": dict(by_kind),
@@ -197,6 +198,9 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     trace = out / f"{tag}_train_step_trace.json"
     prof.export_chrome_trace(str(trace))
+    by_span = span_times(trace).by_span
+    summary["device_ms_by_span"] = {name: row["busy_us"] / 1e3 for name, row in by_span.items()
+                                    if name.startswith("train.")}
     with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     trace.unlink()

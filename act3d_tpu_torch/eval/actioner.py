@@ -9,11 +9,17 @@ per keystep.
 
 The JAX ``fused_dispatch`` option (both models as one jitted program) has
 no meaning without ``jit`` and is dropped: PyTorch enqueues the two
-models back to back on one stream.
+models back to back on one stream.  On a CUDA device that stream is the
+Actioner's own, ordered after the caller's current stream at entry and
+before it at exit, and the sampler replays its denoising steps from CUDA
+graphs captured on it (``models/sampler_graph.py``: CUDA graphs cannot be
+captured on the legacy default stream, and a side stream would get a
+cuBLAS workspace of its own).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -22,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import Act3D, DiffusionPlanner, compute_trajectory
+from ..models.sampler_graph import SamplerGraphs
 from ..utils.spans import span
 
 __all__ = ["Actioner"]
@@ -58,6 +65,8 @@ class Actioner:
         self._task_str = None
         # host seconds of each model in the last predict(timed=True)
         self.last_phase_seconds: Optional[Dict[str, float]] = None
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._graphs = SamplerGraphs()
 
     def load_episode(self, task_str: str, variation: int):
         self._task_str = task_str
@@ -69,6 +78,19 @@ class Actioner:
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    @contextlib.contextmanager
+    def _own_stream(self):
+        if self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                yield
+        finally:
+            caller.wait_stream(self._stream)
 
     def _mark(self, timed: bool) -> float:
         if timed and self.device.type == "cuda":
@@ -99,7 +121,7 @@ class Actioner:
         if self._instr is None:
             raise ValueError("call load_episode first")
         Actioner.keysteps += 1
-        with span("keystep"):
+        with self._own_stream(), span("keystep"):
             rgbs = self._tensor(rgbs) / 2 + 0.5  # to [0, 1]
             pcds = self._tensor(pcds)
             gripper = self._tensor(gripper)
@@ -128,7 +150,7 @@ class Actioner:
                         torch.as_tensor(np.asarray(trajectory_mask, bool), device=self.device),
                         rgbs, pcds, self._instr,
                         gripper[:, : self._action_dim], action[:, : self._action_dim],
-                        generator=self._generator, noise=noise,
+                        generator=self._generator, noise=noise, graphs=self._graphs,
                     )
             clock.append(self._mark(timed))
             if timed:

@@ -212,6 +212,30 @@ def _batch_count(valid: torch.Tensor, generator: Optional[Generators]) -> torch.
     return count.to(valid.dtype) / generator.world
 
 
+def reverse_step(model: DiffusionPlanner, trajectory, trajectory_mask, step, context,
+                 cond_data, cond_mask, eps=None):
+    """Denoising step ``step`` of the reverse process, t = T - 1 - step: the
+    denoiser's clean-sample prediction with the conditioned entries held,
+    then the DDPM step t -> t - 1 with noise ``eps``; the final step (``eps``
+    None) returns the held prediction itself.
+
+    ``step`` is an int (the eager loop) or a one-element int64 tensor on the
+    trajectory's device: a captured step reads t and its coefficients from
+    the device, so one CUDA graph serves every t > 0.  Both give the same
+    numbers from the same kernels."""
+    b = trajectory.shape[0]
+    t = model.diffusion_timesteps - 1 - step
+    timestep = (torch.full((b,), t, device=trajectory.device) if isinstance(t, int)
+                else t.expand(b))
+    out = model.denoise_step(trajectory, trajectory_mask, timestep, context)
+    out = torch.where(cond_mask, cond_data, out)
+    if eps is None:
+        return out
+    pos = model.pos_schedule.step(out[..., :3], t, trajectory[..., :3], eps[..., :3])
+    rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
+    return torch.cat([pos, rot], dim=-1)
+
+
 @torch.no_grad()
 def compute_trajectory(
     model: DiffusionPlanner,
@@ -223,6 +247,7 @@ def compute_trajectory(
     goal_gripper: torch.Tensor,  # (B, 7)
     generator=None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    graphs=None,
 ) -> torch.Tensor:
     """Full reverse diffusion; returns (B, L, 7) trajectories.
 
@@ -232,6 +257,11 @@ def compute_trajectory(
     test can feed the exact numbers of another implementation.  Non-6D
     quaternions are normalised after the last step, as in JAX.  Spans:
     "sampler.encode", and "sampler.denoise_step" around each step.
+
+    ``graphs`` (a ``models/sampler_graph.py::SamplerGraphs``, the serving
+    path's) replays the steps from CUDA graphs where the model is at eval on
+    a CUDA device; the same numbers as the eager loop.  Steps are counted in
+    ``compute_trajectory.eager_steps`` / ``.replayed_steps``.
     """
     b, length = trajectory_mask.shape
     d = model.internal_dim
@@ -261,18 +291,20 @@ def compute_trajectory(
         trajectory = randn() + cond_data
     else:
         trajectory = noise[0] + cond_data
-    for i, t in enumerate(range(n_steps - 1, -1, -1)):
-        with span("sampler.denoise_step"):
-            out = model.denoise_step(trajectory, trajectory_mask,
-                                     torch.full((b,), t, device=dev), context)
-            out = torch.where(cond_mask, cond_data, out)
-            if t == 0:
-                trajectory = out  # the final step keeps the raw prediction
-                break
-            eps = randn() if noise is None else noise[1][i]
-            pos = model.pos_schedule.step(out[..., :3], t, trajectory[..., :3], eps[..., :3])
-            rot = model.rot_schedule.step(out[..., 3:9], t, trajectory[..., 3:9], eps[..., 3:9])
-            trajectory = torch.cat([pos, rot], dim=-1)
+    if graphs is not None and dev.type == "cuda" and not model.training:
+        # one (B, L, D) draw a step, in the eager loop's order
+        eps = noise[1][:n_steps - 1] if noise is not None else torch.stack(
+            [randn() for _ in range(n_steps - 1)])
+        trajectory = graphs.sample(model, trajectory, trajectory_mask, context, cond_data,
+                                   cond_mask, eps)
+    else:
+        for i in range(n_steps):
+            with span("sampler.denoise_step"):
+                last = i == n_steps - 1
+                eps = None if last else randn() if noise is None else noise[1][i]
+                trajectory = reverse_step(model, trajectory, trajectory_mask, i, context,
+                                          cond_data, cond_mask, eps)
+            compute_trajectory.eager_steps += 1
 
     if model.rotation_parametrization != "6D":
         trajectory = torch.cat([trajectory[..., :3], R.normalise_quat(trajectory[..., 3:7]),
@@ -280,3 +312,10 @@ def compute_trajectory(
     trajectory = model.unconvert_rot(trajectory)
     return torch.cat([model.unnormalize_pos(trajectory[..., :3]), trajectory[..., 3:]],
                      dim=-1)
+
+
+# denoising steps of this process: run eagerly (any caller), replayed from a
+# CUDA graph (``SamplerGraphs``), and the graphs captured
+compute_trajectory.eager_steps = 0
+compute_trajectory.replayed_steps = 0
+compute_trajectory.captures = 0

@@ -50,6 +50,9 @@ class DDPMSchedule(nn.Module):
 
     x_{t-1} = posterior_x0_coeff[t] * x0_hat + posterior_xt_coeff[t] * x_t
               + sqrt(posterior_variance[t]) * eps
+
+    ``step_coeffs`` (T, 3) holds those three factors of each t side by
+    side, so a step indexed by a device tensor gathers them in one kernel.
     """
 
     _TABLES = ("betas", "alphas_cumprod", "sqrt_alphas_cumprod",
@@ -61,6 +64,9 @@ class DDPMSchedule(nn.Module):
         for name in self._TABLES:
             self.register_buffer(name, torch.as_tensor(np.asarray(tables[name], np.float32)),
                                  persistent=False)
+        self.register_buffer("step_coeffs", torch.stack(
+            [self.posterior_x0_coeff, self.posterior_xt_coeff,
+             torch.sqrt(self.posterior_variance)], dim=1), persistent=False)
         self.num_timesteps = len(tables["betas"])
 
     def add_noise(self, x0, noise, timesteps):
@@ -70,19 +76,20 @@ class DDPMSchedule(nn.Module):
         b = self.sqrt_one_minus_alphas_cumprod[timesteps].reshape(shape)
         return a * x0 + b * noise
 
-    def step(self, model_output, timestep: int, sample, noise):
+    def step(self, model_output, timestep, sample, noise):
         """One reverse step t -> t-1 for ``prediction_type="sample"``.
 
-        ``noise`` is standard normal of the sample's shape and is applied
-        only for t > 0.
+        ``timestep`` is an int, or a one-element int64 tensor on the tables'
+        device (a CUDA graph's step, which reads t without a host round
+        trip: indexing by a 0-d tensor would read it back); both give the
+        same numbers.  ``noise`` is standard normal of the sample's shape, or
+        None at t = 0, which takes no noise term.
         """
         x0 = torch.clamp(model_output, -CLIP_SAMPLE_RANGE, CLIP_SAMPLE_RANGE)
-        prev = (
-            self.posterior_x0_coeff[timestep] * x0
-            + self.posterior_xt_coeff[timestep] * sample
-        )
-        if timestep > 0:
-            prev = prev + torch.sqrt(self.posterior_variance[timestep]) * noise
+        coeffs = self.step_coeffs[timestep].reshape(3)
+        prev = coeffs[0] * x0 + coeffs[1] * sample
+        if noise is not None:
+            prev = prev + coeffs[2] * noise
         return prev
 
 

@@ -12,15 +12,16 @@ in a seeded order from a bank of seeded instructions.
 The window runs whole keysteps until ``--seconds`` have passed;
 ``keystep_ms`` is its length over the keysteps completed.  With
 ``--trace 1`` a profiled stretch of ``trace_keysteps`` more keysteps
-follows the window.  A forward hook
-keeps each keystep's Act3D choices (its output's ``position_pyramid``).
-The check reruns a seeded sample of the window's keysteps through the
+follows the window.  The Act3D adapter's ``recorder`` keeps each
+keystep's Act3D choices (its output's ``position_pyramid``).  The check
+reruns a seeded sample of the window's keysteps through the
 reference, following those choices, and compares each action and
 trajectory with the one the window produced.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import sys
 import time
@@ -30,6 +31,10 @@ import torch
 
 from .. import generators, harness, models, trace
 from ..harness import Check, Outcome, derive
+
+# the keystep's two models, each built by the configuration's adapter of that role
+ROLES = ("act3d", "planner")
+
 
 class Inputs:
     """The cell's traffic, drawn from the run's seed."""
@@ -48,7 +53,9 @@ class Inputs:
                                             diameters[:levels], cfg["workspace_bounds"], gen,
                                             device)
         self.noises = generators.noise_sets(tr["input_sets"], p["diffusion_timesteps"],
-                                            p["trajectory_length"], 9, gen, device)
+                                            p["trajectory_length"],
+                                            models.adapter(cfg, "planner").noise_width(cfg),
+                                            gen, device)
         self.tasks = [f"task{i}" for i in np.random.default_rng(
             derive(seed, "episodes")).permutation(len(self.bank))]
         self.episode = tr["episode_keysteps"]
@@ -96,8 +103,9 @@ def reference_keystep(ref_act3d, ref_planner, inputs: Inputs, k: int, follow=Non
 
 def references(cfg, seed, device):
     """Both reference models at eval, without gradients."""
-    return tuple(models.reference(kind, cfg, derive(seed, f"weights.{kind}"), device)
-                 .eval().requires_grad_(False) for kind in ("act3d", "planner"))
+    return tuple(models.adapter(cfg, role).reference(cfg, derive(seed, f"weights.{role}"),
+                                                     device).eval().requires_grad_(False)
+                 for role in ROLES)
 
 
 def check(cfg, seed, device, inputs: Inputs, produced: dict):
@@ -122,8 +130,8 @@ def run(ctx) -> Outcome:
     from act3d_tpu_torch.eval.actioner import Actioner
 
     inputs = Inputs(cfg, tr, seed, dev)
-    act3d = models.program("act3d", cfg, derive(seed, "weights.act3d"), dev)
-    planner = models.program("planner", cfg, derive(seed, "weights.planner"), dev)
+    act3d, planner = (models.program(role, cfg, derive(seed, f"weights.{role}"), dev)
+                      for role in ROLES)
     actioner = Actioner(act3d, planner, instructions=inputs.instructions(),
                         seed=derive(seed, "actioner"), device=dev)
 
@@ -134,10 +142,9 @@ def run(ctx) -> Outcome:
         return actioner.predict(rgb, pcd, grip, trajectory_mask=inputs.mask, timed=timed,
                                 ghost_points_override=ghosts, noise=noise)
 
-    chosen = []
     # each keystep's Act3D choices, for the reference to follow
-    act3d.register_forward_hook(
-        lambda module, args, out: chosen.append([p.clone() for p in out["position_pyramid"]]))
+    recording = contextlib.ExitStack()
+    chosen = recording.enter_context(models.adapter(cfg, "act3d").recorder(act3d))
     for k in range(tr["warmup_keysteps"]):
         keystep(k)
     chosen.clear()
@@ -169,6 +176,7 @@ def run(ctx) -> Outcome:
     failed = sum(not (np.isfinite(o["action"]).all() and np.isfinite(o["trajectory"]).all())
                  for o in outputs)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    recording.close()
     del actioner, act3d, planner
     gc.collect()
     if cuda:

@@ -1,6 +1,7 @@
 """Training-step driver: ``Trainer.step`` of the configuration's training
-model (``flagship.keypose_loss_fn`` for Act3D with ground-truth-centred
-fine sampling, ``flagship.diffusion_loss_fn`` for the ChainedDiffuser),
+model (its role ``train_model``: the adapter's loss, such as
+``flagship.keypose_loss_fn`` for Act3D with ground-truth-centred fine
+sampling, ``flagship.diffusion_loss_fn`` for the ChainedDiffuser),
 float32 as the entry points ship, at the traffic file's batch.
 
 Set-up makes a pool of distinct seeded batches on the device, warms every
@@ -15,11 +16,13 @@ ones the check follows in the reference: it compares each step's loss, the
 first gradient as AdamW got it (its first moment after one step over
 1 - beta1), read inside the window after the first step, and the
 parameters' change over those steps, read inside the window after the
-last of them, leaf by leaf, and judges every Act3D choice it followed.
+last of them, leaf by leaf, and judges every choice of the system (the
+adapter's ``recorder``, one entry a forward) it followed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import sys
 import time
@@ -27,9 +30,8 @@ import time
 import numpy as np
 import torch
 
-from .. import generators, harness, models, trace
+from .. import harness, models, trace
 from ..harness import Check, Outcome, derive
-from ..reference.act3d import keypose_loss
 from ..reference.layers import Generators
 from ..reference.optim import AdamW
 
@@ -38,46 +40,28 @@ BETA1 = 0.9
 
 def make_batches(cfg, tr, seed, device):
     gen = torch.Generator(device=device).manual_seed(derive(seed, "traffic"))
-    args = (tr["batch"], cfg["ncam"], cfg["image_size"])
-    if cfg["train_model"] == "act3d":
-        return [generators.keypose_batch(*args, cfg["workspace_bounds"], gen, device)
-                for _ in range(tr["batch_pool"])]
-    return [generators.trajectory_batch(*args, cfg["planner"]["trajectory_length"],
-                                        cfg["workspace_bounds"], gen, device)
-            for _ in range(tr["batch_pool"])]
-
-
-def reference_loss(kind, model, batch, gens, follow=None):
-    """The reference's loss of one batch, Act3D's chosen positions per
-    level (following ``follow``, the system's) and its choice gap."""
-    if kind == "act3d":
-        pred = model(batch["rgbs"], batch["pcds"], batch["instr"], batch["curr_gripper"],
-                     gens=gens, gt_action=batch["action"], follow=follow)
-        return (keypose_loss(pred, batch["action"]),
-                [p.detach() for p in pred["position_pyramid"]], float(pred["choice_gap"].detach()))
-    return model.loss(batch["trajectory"], batch["trajectory_mask"], batch["rgbs"],
-                      batch["pcds"], batch["instr"], batch["curr_gripper"], batch["action"],
-                      gens), None, 0.0
+    return models.adapter(cfg, cfg["train_model"]).batches(cfg, tr, gen, device)
 
 
 def reference_steps(cfg, seed, batches, steps, device, mode="ieee", follow=None):
     """The reference's first ``steps`` steps: losses, the first gradient's
     norm per leaf, the parameters' change per leaf, the widest choice gap
-    over the steps, and Act3D's chosen positions of each step (following
+    over the steps, and the reference's choices of each step (following
     ``follow``'s)."""
     kind = cfg["train_model"]
+    adapter = models.adapter(cfg, kind)
     with harness.float32(mode):
-        model = models.reference(kind, cfg, derive(seed, f"weights.{kind}"), device).train()
+        model = adapter.reference(cfg, derive(seed, f"weights.{kind}"), device).train()
         opt = AdamW(model, cfg["optimizer"]["lr"], cfg["optimizer"]["weight_decay"])
         before = {n: p.detach().clone() for n, p in opt.params.items()}
         gens = Generators.from_seed(derive(seed, "trainer"), device)
         losses, grad, choice, chosen = [], None, 0.0, []
         for i in range(steps):
-            loss, positions, gap = reference_loss(kind, model, batches[i], gens,
-                                                  None if follow is None else follow[i])
+            loss, choices, gap = adapter.reference_loss(model, batches[i], gens,
+                                                        None if follow is None else follow[i])
             loss.backward()
             losses.append(float(loss.detach()))
-            chosen.append(positions)
+            chosen.append(choices)
             choice = max(choice, gap)
             applied = opt.step()
             if grad is None:
@@ -89,7 +73,7 @@ def reference_steps(cfg, seed, batches, steps, device, mode="ieee", follow=None)
 def compare(readings, ref) -> dict:
     """The numbers a side's readings (losses, first gradient, change) give
     against the reference's, and the reference's widest choice gap on the
-    side's Act3D choices (0 without them); a cell's traffic file names
+    side's choices (0 without them); a cell's traffic file names
     those it compares, each with its limit.
 
     Each leaf is read at its norm, the worst leaf's gap over the larger of
@@ -122,17 +106,11 @@ def _median_leaf_gap(prog, ref, keep) -> float:
 
 def trainer_for(kind, cfg, seed, dev):
     """The system's model and a Trainer of it, built from the seed."""
-    from act3d_tpu_torch.train import flagship
     from act3d_tpu_torch.train.engine import Trainer
 
-    model = models.program(kind, cfg, derive(seed, f"weights.{kind}"), dev)
-    if kind == "act3d":
-        from act3d_tpu_torch.train.losses import KeyposeLossAndMetrics
-
-        loss_fn = flagship.keypose_loss_fn(model, KeyposeLossAndMetrics(), use_gt_sampling=True)
-    else:
-        loss_fn = flagship.diffusion_loss_fn(model)
-    return model, Trainer(loss_fn, model, lr=cfg["optimizer"]["lr"],
+    adapter = models.adapter(cfg, kind)
+    model = adapter.program(cfg, derive(seed, f"weights.{kind}"), dev)
+    return model, Trainer(adapter.loss_fn(model), model, lr=cfg["optimizer"]["lr"],
                           weight_decay=cfg["optimizer"]["weight_decay"],
                           seed=derive(seed, "trainer"))
 
@@ -141,6 +119,7 @@ def run(ctx) -> Outcome:
     cfg, tr, dev, seed = ctx.config, ctx.traffic, ctx.device, ctx.seed
     cuda = dev == "cuda"
     kind = cfg["train_model"]
+    adapter = models.adapter(cfg, kind)
     batches = make_batches(cfg, tr, seed, dev)
     pool, checked = len(batches), tr["check_steps"]
     # every shape of the step warmed on a Trainer of its own, freed before
@@ -153,12 +132,9 @@ def run(ctx) -> Outcome:
     model, trainer = trainer_for(kind, cfg, seed, dev)
     names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
     before = [p.detach().clone() for p in params]
-    follow = []
-    # the checked steps' Act3D choices (its output's positions), for the reference to follow
-    hook = model.register_forward_hook(
-        lambda module, args, out: follow.append([p.detach().clone()
-                                                 for p in out["position_pyramid"]])
-    ) if kind == "act3d" else None
+    # the checked steps' choices, for the reference to follow
+    recording = contextlib.ExitStack()
+    follow = recording.enter_context(adapter.recorder(model))
 
     steps, losses, grad, change = 0, [], None, None
     start = time.perf_counter()
@@ -174,8 +150,7 @@ def run(ctx) -> Outcome:
             change = torch._foreach_norm(torch._foreach_sub([p.detach() for p in params],
                                                             before))
             del before
-            if hook is not None:
-                hook.remove()
+            recording.close()
         if time.perf_counter() - start >= ctx.seconds and steps >= checked:
             break
     if cuda:
@@ -218,7 +193,7 @@ def run(ctx) -> Outcome:
 
         gens = Generators.from_seed(derive(seed, "trainer"), dev)
         with FlopCounterMode(display=False) as counter, harness.float32("ieee"):
-            reference_loss(kind, ref, batches[0], gens)[0].backward()
+            adapter.reference_loss(ref, batches[0], gens)[0].backward()
         layer["flops_per_step"] = float(counter.get_total_flops())
     limits = tr["limits"]
     return Outcome(
@@ -239,7 +214,6 @@ def control(ctx, mode: str = "tf32") -> dict:
         cfg, seed, batches, tr["check_steps"], dev, mode)
     del model
     gc.collect()
-    follow = chosen if cfg["train_model"] == "act3d" else None
     ref_readings, _, _ = reference_steps(cfg, seed, batches, tr["check_steps"], dev,
-                                         follow=follow)
+                                         follow=chosen)
     return compare((losses, grad, change), ref_readings)

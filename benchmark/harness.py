@@ -4,8 +4,9 @@ that decide ``correct``, and the per-layer metric readers.
 
 Nothing here is specific to a configuration, a traffic mix or a metric:
 those are files found by the names in ``BENCHMARK.json`` (a traffic file
-names its driver in ``benchmark/drivers``; a per-layer metric is
-``benchmark/metrics/<name>.py``).
+names its driver in ``benchmark/drivers``; a configuration's models are
+the adapters of ``benchmark/adapters``, benchmark/models.py; a per-layer
+metric is ``benchmark/metrics/<name>.py``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """The attention kernels' share of their roofline over the traced keysteps
-(%): the tensor-core bound of every attention call a keystep makes (its
-sites from the configuration's widths, benchmark/work.py) over the device
-time of the kernels whose names hold one of PATTERNS.  The bound counts
-the work, whatever kernel does it."""
+(%): the tensor-core bound of every attention call a keystep makes (the
+sites of each role's adapter from the configuration's widths,
+benchmark/work.py) over the device time of the kernels whose names hold
+one of PATTERNS.  The bound counts the work, whatever kernel does it."""
 
-from benchmark import work
+from benchmark import models, work
+from benchmark.drivers.keystep import ROLES
 
 PATTERNS = ("mha_fwd", "mha_bwd", "sum_slabs")
 
@@ -17,8 +18,6 @@ def read(run):
     if not seconds:
         return None
     cfg = run.config
-    shared = {"ncam": cfg["ncam"], "instruction_tokens": cfg["instruction_tokens"]}
-    sites = (work.act3d_sites({**cfg["act3d"], **shared}, 1, training=False)
-             + work.planner_sites({**cfg["planner"], **shared}, 1,
-                                  per_denoise=cfg["planner"]["diffusion_timesteps"]))
+    sites = [site for role in ROLES
+             for site in models.adapter(cfg, role).sites(cfg, 1, training=False)]
     return 100.0 * n * work.bound_s(sites) / seconds

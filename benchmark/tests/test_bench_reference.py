@@ -19,16 +19,18 @@ _cfg = tiny_config
 
 def test_state_dict_layouts_match():
     for kind in ("act3d", "planner"):
-        prog = models.program(kind, CFG, 1, "cpu").state_dict()
-        ref = models.reference(kind, CFG, 1, "cpu").state_dict()
+        adapter = models.adapter(CFG, kind)
+        prog = adapter.program(CFG, 1, "cpu").state_dict()
+        ref = adapter.reference(CFG, 1, "cpu").state_dict()
         assert list(prog) == list(ref)
         for name in prog:
             assert torch.equal(prog[name], ref[name]), name
 
 
 def test_act3d_eval_forward():
-    prog = models.program("act3d", CFG, 7, "cpu").eval()
-    ref = models.reference("act3d", CFG, 7, "cpu").eval()
+    adapter = models.adapter(CFG, "act3d")
+    prog = adapter.program(CFG, 7, "cpu").eval()
+    ref = adapter.reference(CFG, 7, "cpu").eval()
     batch = train.make_batches(_cfg("act3d"), TRAFFIC, 7, "cpu")[0]
     gen = torch.Generator().manual_seed(3)
     ghosts = [torch.rand(2, 20, 3, generator=gen) for _ in range(3)]
@@ -47,19 +49,14 @@ def test_training_loss_and_gradients(kind):
     """The training loss with the step's generator draws (ghost points;
     noise, timesteps and dropout) and every trainable leaf's gradient."""
     from act3d_tpu_torch.nn.dropout import Generators as ProgGenerators
-    from act3d_tpu_torch.train import flagship
-    from act3d_tpu_torch.train.losses import KeyposeLossAndMetrics
 
     cfg = _cfg(kind)
+    adapter = models.adapter(cfg, kind)
     batch = train.make_batches(cfg, TRAFFIC, 11, "cpu")[0]
-    prog = models.program(kind, cfg, 11, "cpu").train()
-    ref = models.reference(kind, cfg, 11, "cpu").train()
-    if kind == "act3d":
-        loss_fn = flagship.keypose_loss_fn(prog, KeyposeLossAndMetrics())
-    else:
-        loss_fn = flagship.diffusion_loss_fn(prog)
-    got, _ = loss_fn(batch, ProgGenerators.from_seed(5, "cpu"))
-    want = train.reference_loss(kind, ref, batch, Generators.from_seed(5, "cpu"))[0]
+    prog = adapter.program(cfg, 11, "cpu").train()
+    ref = adapter.reference(cfg, 11, "cpu").train()
+    got, _ = adapter.loss_fn(prog)(batch, ProgGenerators.from_seed(5, "cpu"))
+    want = adapter.reference_loss(ref, batch, Generators.from_seed(5, "cpu"))[0]
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
     got.backward()
     want.backward()

@@ -1,5 +1,7 @@
 """The yardstick's arithmetic: the card's peaks, the work and bound of an
-attention call, and the attention sites of a keystep or a training step.
+attention call, and the attention sites of Act3D's and the planner's
+forwards (which their adapters, benchmark/adapters, list for a keystep or
+a training step).
 
 ``fwd_work``, ``bwd_work`` and ``tc_bound`` are frozen copies of
 ``chip_smoke.py``'s (the bound of PERF.md section 6: FLOPs at 165 TFLOP/s,

@@ -22,6 +22,16 @@ gather's backward is autograd's scatter-add, as XLA's); without it they
 attend to the whole level.  Every block updates the trajectory (positions
 by residual, rotations replaced) and ``denoise`` returns every block's
 trajectory.
+
+The selection runs through the parameter-free submodule ``traj_neighbours``
+(:class:`TrajectoryNeighbours`, built only where a block selects), so a
+forward hook sees the (B, k) indices the head gathers; it adds no entry to
+the state dict.  Spans: ``planner.block.scale{n}`` around each block of a
+head of several blocks, ``planner.knn`` around each selection and its two
+gathers; the one-block head opens none.  Counters:
+``DiffusionHead.evaluations`` (``denoise`` calls) and
+``ops.geometry.find_traj_nn.calls`` (selections); a CUDA-graph replay of
+the sampler's step adds what its capture counted.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ..nn.dropout import Generators, dropout
 from ..nn.layers import ParallelAttention, active_generators
 from ..ops.geometry import find_traj_nn
 from ..ops.rotary import rotary_pe_3d, sinusoidal_pos_emb
+from ..utils.spans import NO_SPAN, span
 
 
 def _xavier_linear(d_in: int, d_out: int) -> nn.Linear:
@@ -46,7 +57,20 @@ def _xavier_linear(d_in: int, d_out: int) -> nn.Linear:
     return lin
 
 
+class TrajectoryNeighbours(nn.Module):
+    """The trajectory-nearest selection of the blocks at scales above 0
+    (``find_traj_nn``), as a module without parameters or buffers so that a
+    forward hook can read the indices."""
+
+    def forward(self, trajectory_xyz: torch.Tensor, cloud: torch.Tensor,
+                nn_per_step: int) -> torch.Tensor:
+        """(B, nn_per_step * L) indices of the (B, P, 3) cloud, nearest first."""
+        return find_traj_nn(trajectory_xyz, cloud, nn_per_step=nn_per_step)
+
+
 class DiffusionHead(nn.Module):
+    evaluations = 0  # ``denoise`` calls in this process
+
     def __init__(
         self,
         backbone: str = "clip",
@@ -76,6 +100,11 @@ class DiffusionHead(nn.Module):
         self.feat_scales_to_use = feat_scales_to_use
         self.attn_rounds = attn_rounds
         self.visual = VisualEncoder(image_size, dim, feat_scales_to_use, backbone)
+        if use_goal and feat_scales_to_use > 1:
+            self.traj_neighbours = TrajectoryNeighbours()
+        # a span around each block of a head of several blocks, by scale
+        self._block_spans = ([f"planner.block.scale{s}" for s in range(feat_scales_to_use)]
+                             if attn_rounds * feat_scales_to_use > 1 else None)
         self.traj_enc_fc1 = nn.Linear(output_dim, dim)
         self.traj_enc_fc2 = nn.Linear(dim, dim)
         self.curr_gripper_encoder = nn.Linear(output_dim, dim)
@@ -157,6 +186,7 @@ class DiffusionHead(nn.Module):
     ) -> List[torch.Tensor]:
         """Every block's clean-trajectory prediction (B, L, output_dim), in
         block order.  ``generators`` drive dropout in training mode."""
+        DiffusionHead.evaluations += 1
         dim = self.embedding_dim
         b, length = trajectory.shape[:2]
         gens = active_generators(self, self.dropout, generators)
@@ -177,22 +207,25 @@ class DiffusionHead(nn.Module):
         outputs: List[torch.Tensor] = []
         for attn_round in range(self.attn_rounds):
             for scale in range(self.feat_scales_to_use):
-                context_feats = context["rgb_feats_pyramid"][scale]
-                context_xyz = context["pcd_pyramid"][scale]
-                if self.use_goal and scale > 0:
-                    prev = outputs[-1] if outputs else trajectory
-                    idx = find_traj_nn(prev[..., :3], context_xyz,
-                                       nn_per_step=64 if scale == 1 else 16)
-                    context_feats = torch.gather(
-                        context_feats, 1, idx[..., None].expand(-1, -1, dim))
-                    context_xyz = torch.gather(context_xyz, 1, idx[..., None].expand(-1, -1, 3))
-                i = attn_round * self.feat_scales_to_use + scale
-                update = self._block(i, context, context_feats, context_xyz, traj_feats,
-                                     traj_pos, traj_time_pos, time_feats, trajectory_mask,
-                                     drop, generators)
-                trajectory = torch.cat([trajectory[..., :3] + update[..., :3],
-                                        update[..., 3:]], dim=-1)
-                outputs.append(trajectory)
+                with span(self._block_spans[scale]) if self._block_spans else NO_SPAN:
+                    context_feats = context["rgb_feats_pyramid"][scale]
+                    context_xyz = context["pcd_pyramid"][scale]
+                    if self.use_goal and scale > 0:
+                        with span("planner.knn"):
+                            prev = outputs[-1] if outputs else trajectory
+                            idx = self.traj_neighbours(prev[..., :3], context_xyz,
+                                                       64 if scale == 1 else 16)
+                            context_feats = torch.gather(
+                                context_feats, 1, idx[..., None].expand(-1, -1, dim))
+                            context_xyz = torch.gather(context_xyz, 1,
+                                                       idx[..., None].expand(-1, -1, 3))
+                    i = attn_round * self.feat_scales_to_use + scale
+                    update = self._block(i, context, context_feats, context_xyz, traj_feats,
+                                         traj_pos, traj_time_pos, time_feats, trajectory_mask,
+                                         drop, generators)
+                    trajectory = torch.cat([trajectory[..., :3] + update[..., :3],
+                                            update[..., 3:]], dim=-1)
+                    outputs.append(trajectory)
         return outputs
 
     def _block(self, i, context, context_feats, context_xyz, traj_feats, traj_pos,

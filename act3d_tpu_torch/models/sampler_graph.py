@@ -23,9 +23,10 @@ parameters (``.to()`` another device, ``assign=True``) needs a new
 ``SamplerGraphs``.
 
 Counters: ``compute_trajectory.eager_steps`` / ``.replayed_steps`` /
-``.captures``.  A replay adds to ``multi_head_attention.calls`` and the
-fused-MHA launch counters what one captured step counted, so they count the
-calls and launches that run, replayed or not.
+``.captures``.  A replay adds to ``multi_head_attention.calls``, the
+fused-MHA launch counters, ``DiffusionHead.evaluations`` and
+``find_traj_nn.calls`` what one captured step counted, so they count the
+calls, launches and selections that run, replayed or not.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ import torch
 
 from ..kernels.attention import fused_mha_forward
 from ..ops.attention import multi_head_attention
+from ..ops.geometry import find_traj_nn
 from ..utils.spans import span
+from .diffusion_head import DiffusionHead
 from .diffusion_planner import DiffusionPlanner, compute_trajectory, reverse_step
 
 __all__ = ["SamplerGraphs"]
@@ -45,7 +48,8 @@ ENTRIES = 4  # input signatures kept (a demo's padded length can change it)
 
 # the counters a denoising step moves
 COUNTERS = ((multi_head_attention, "calls"), (fused_mha_forward, "launches"),
-            (fused_mha_forward, "launches_bf16"))
+            (fused_mha_forward, "launches_bf16"), (DiffusionHead, "evaluations"),
+            (find_traj_nn, "calls"))
 
 
 def _counts() -> List[int]:

@@ -3,7 +3,8 @@
 Counterpart of ``act3d_tpu/ops/geometry.py::find_traj_nn``,
 ``topk_nearest_context``, ``gather_tokens`` and ``find_cylinder_points``.
 Exact selections keep JAX's order among equal distances (``lax.top_k``:
-the lower index first).
+the lower index first).  ``find_traj_nn.calls`` counts the trajectory-nearest
+selections made in this process.
 The token gather's backward is the row-scatter kernel of
 ``kernels/gather.py`` at every width: the TPU routing floor (``c >= 16``)
 and the ``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
@@ -34,9 +35,13 @@ def find_traj_nn(trajectory: torch.Tensor, point_cloud: torch.Tensor,
     any point of the (B, L, 3) trajectory (distance to the nearest
     trajectory point), nearest first, ties in index order.  The indices carry
     no gradient, so the (B, L, P) distances are not kept for a backward."""
+    find_traj_nn.calls += 1
     trajectory, point_cloud = trajectory.detach(), point_cloud.detach()
     d2 = torch.sum((trajectory[:, :, None, :] - point_cloud[:, None, :, :]) ** 2, dim=-1)
     return _nearest(torch.amin(d2, dim=1), nn_per_step * trajectory.shape[1])
+
+
+find_traj_nn.calls = 0  # selections in this process (a graph replay adds its capture's)
 
 
 def topk_nearest_context(anchor: torch.Tensor, point_cloud: torch.Tensor, k: int,

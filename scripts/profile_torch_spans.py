@@ -18,7 +18,13 @@ JSON object, also written to ``<out>/spans.json``:
     ``train.backward``, ``train.optimizer``); per span its count, busy ms a
     span and a keystep or step, and its top 5 device events; for the
     keystep, ``multi_head_attention`` calls and fused-MHA kernel launches a
-    keystep;
+    keystep; for a training cell, ``find_traj_nn`` selections and
+    ``denoise`` evaluations a step; for the multi-scale head
+    (``--train chained_diffuser_ms.train_b22``) the rows of
+    ``planner.block.scale{n}`` (each block's forward, per scale) and
+    ``planner.knn`` (the selections and their gathers), and
+    ``forward_share_by_scale``: each scale's share of the forward's busy
+    time (the backward runs under ``train.backward``, on autograd's thread);
   * the loader's ``NVCC_SECONDS`` and ``LOAD_SECONDS``.
 
 Run from the repository root on the card:
@@ -44,7 +50,9 @@ sys.path.insert(0, str(REPO))
 from act3d_tpu_torch.eval.actioner import Actioner  # noqa: E402
 from act3d_tpu_torch.kernels import _build  # noqa: E402
 from act3d_tpu_torch.kernels.attention import fused_mha_forward  # noqa: E402
+from act3d_tpu_torch.models.diffusion_head import DiffusionHead  # noqa: E402
 from act3d_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
+from act3d_tpu_torch.ops.geometry import find_traj_nn  # noqa: E402
 from act3d_tpu_torch.train.profiling import span_times  # noqa: E402
 from act3d_tpu_torch.utils.spans import span  # noqa: E402
 from benchmark import harness, models  # noqa: E402
@@ -170,11 +178,20 @@ def train_cell(cell, seed, dev, n_host: int) -> dict:
 
     steps(tr["warmup_steps"])
     _sync(dev)
+    calls, evaluations = find_traj_nn.calls, DiffusionHead.evaluations
     t0 = time.perf_counter()
     steps(n_host)
     _sync(dev)
-    out = {"host_ms_a_step": (time.perf_counter() - t0) * 1e3 / n_host}
+    out = {"host_ms_a_step": (time.perf_counter() - t0) * 1e3 / n_host,
+           "selections_a_step": (find_traj_nn.calls - calls) / n_host,
+           "evaluations_a_step": (DiffusionHead.evaluations - evaluations) / n_host}
     out.update(_traced(dev, lambda: steps(tr["trace_steps"]), tr["trace_steps"], "train"))
+    spans = out["spans"]
+    forward = spans.get("train.forward", {}).get("busy_ms_a_unit")
+    if forward:
+        out["forward_share_by_scale"] = {
+            name: row["busy_ms_a_unit"] / forward for name, row in sorted(spans.items())
+            if name.startswith("planner.block.scale") or name == "planner.knn"}
     return out
 
 

@@ -18,6 +18,11 @@
 // b is the row of the global batch: the kernels pass b0 + (local row),
 // with b0 the rows' offset under data parallelism.
 //
+// The seed is a launch argument, or, where an entry of the two sources is
+// given a `seed_slot`, the uint32 word there in device memory, read by each
+// thread once before its first row key: a step replayed from a CUDA graph
+// (train/step_graph.py) writes its seeds to those words before the replay.
+//
 // The row key is computed once per query row; each score then costs 11
 // integer instructions (one IMAD for col * golden, the xor, the 8 of mix
 // with its two 32-bit multiplies, the compare).
@@ -33,6 +38,10 @@ __host__ __device__ __forceinline__ uint32_t act3d_mix32(uint32_t x) {
   x *= 0x846ca68bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t act3d_dropout_seed(uint32_t seed, const uint32_t* slot) {
+  return slot != nullptr ? __ldg(slot) : seed;
 }
 
 __host__ __device__ __forceinline__ uint32_t act3d_dropout_row_key(

@@ -107,6 +107,7 @@ struct Dropout {
   uint32_t threshold;
   float inv_keep;
   uint32_t b0;  // the rows' offset in the global batch (data parallelism)
+  const uint32_t* slot;  // the seed in device memory (the entries' seed_slot), or null
 };
 
 __host__ __device__ constexpr int ds_stride(int key_block) { return key_block + 8; }
@@ -142,6 +143,7 @@ mha_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ dq_parts, float* __restrict__ dkv_parts, int B,
                int L, int S, int H, int d, int key_tiles, int nsplit,
                int rows_per_split, int rt, Dropout drop) {
+  const uint32_t seed = DROPOUT ? act3d_dropout_seed(drop.seed, drop.slot) : 0u;
   constexpr int SD = DP + 4;
   constexpr int KD = DP / 8;
   const int kw = blockDim.x >> 5;
@@ -219,7 +221,7 @@ mha_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mv = stats[row * (2 * H) + 2 * h];
         rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
         dlv = delta[row * H + h];
-        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, i0 + r);
+        if (DROPOUT) rk = act3d_dropout_row_key(seed, drop.b0 + b, h, i0 + r);
       }
       m_s[r] = mv;
       r_s[r] = rv;
@@ -465,6 +467,7 @@ mha_bwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
                     float* __restrict__ dq_parts, float* __restrict__ dkv_parts, int B,
                     int L, int S, int H, int d, int key_tiles, int nsplit,
                     int rows_per_split, int rt, Dropout drop) {
+  const uint32_t seed = DROPOUT ? act3d_dropout_seed(drop.seed, drop.slot) : 0u;
   constexpr int SK = DP + 8;  // [key or row][dim] tiles
   constexpr int KS = DP / 16; // k-steps over dims
   constexpr int NO = DP / 8;  // n-tiles over dims
@@ -543,7 +546,7 @@ mha_bwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
         mv = stats[row * (2 * H) + 2 * h];
         rv = 1.f / stats[row * (2 * H) + 2 * h + 1];
         dlv = delta[row * H + h];
-        if (DROPOUT) rk = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, i0 + r);
+        if (DROPOUT) rk = act3d_dropout_row_key(seed, drop.b0 + b, h, i0 + r);
       }
       m_s[r] = mv;
       r_s[r] = rv;
@@ -1143,6 +1146,7 @@ mha_bwd_dq_bf16_wgmma_kernel(const WgBwdArgs a) {
   // rows g and g + 8: m (+inf past the tile: ex = 0), m log2 e, delta, r, row key
   float m[2], m2[2], dl[2], rr[2];
   uint32_t rk[2];
+  const uint32_t seed = DROPOUT ? act3d_dropout_seed(a.drop.seed, a.drop.slot) : 0u;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = 16 * wl + g + 8 * r;
@@ -1154,7 +1158,7 @@ mha_bwd_dq_bf16_wgmma_kernel(const WgBwdArgs a) {
       m[r] = sr[i * 2 * a.H + 2 * h];
       rr[r] = 1.f / sr[i * 2 * a.H + 2 * h + 1];
       dl[r] = dr[i * a.H + h];
-      if (DROPOUT) rk[r] = act3d_dropout_row_key(a.drop.seed, a.drop.b0 + b, h, r0 + i);
+      if (DROPOUT) rk[r] = act3d_dropout_row_key(seed, a.drop.b0 + b, h, r0 + i);
     }
     m2[r] = m[r] * kLog2e;
   }
@@ -1307,7 +1311,7 @@ cudaError_t launch_wg_dp(WgBwdArgs a, int group, int dq_group, cudaStream_t stre
   const Dropout& dr = a.drop;
   const Act3dPrepArgs rows{a.q, a.dout, a.stats, a.delta, const_cast<char*>(a.rowrec), a.B,
                            a.L, a.H, a.d, (a.L + kWgRows - 1) / kWgRows, dr.seed, dr.b0,
-                           DROPOUT ? 1u : 0u, DROPOUT ? dr.inv_keep : 1.f};
+                           DROPOUT ? 1u : 0u, DROPOUT ? dr.inv_keep : 1.f, dr.slot};
   err = act3d_prep<DP, kRows>(rows, stream);
   if (err != cudaSuccess) return err;
   const Act3dPrepArgs keys{a.k, a.v, nullptr, nullptr, const_cast<char*>(a.keyrec), a.B, a.S,
@@ -1367,14 +1371,17 @@ bool bad_args(int B, int L, int S, int H, int d, int key_warps, int rows_per_spl
 // slabs when key_tiles > 1 and 2 * nsplit * B*S*E floats of dk, dv slabs
 // when nsplit > 1 (may be null when neither).  dropout != 0 selects the
 // dropout instantiations, with the keep threshold, 1/(1-rate) and the
-// batch offset b0 computed on the host.  Returns cudaGetLastError() after the launches (0 =
+// batch offset b0 computed on the host, and the seed: `seed`, or, where
+// `seed_slot` is not null, the uint32 word it points to in device memory
+// (as act3d_fused_mha_fwd_f32).  Returns cudaGetLastError() after the launches (0 =
 // success).
 extern "C" int act3d_fused_mha_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* stats, const void* delta, const void* mask, void* dq,
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
     int key_warps, int rows_per_split, int nsplit, int dropout, unsigned int seed,
-    unsigned int threshold, float inv_keep, unsigned int b0, void* stream) {
+    const void* seed_slot, unsigned int threshold, float inv_keep, unsigned int b0,
+    void* stream) {
   if (bad_args(B, L, S, H, d, key_warps, rows_per_split, nsplit, work)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1382,7 +1389,7 @@ extern "C" int act3d_fused_mha_bwd_f32(
   if (smem_bytes(dp, key_warps, row_tile(rows_per_split)) > kMaxSmem) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const Dropout drop{seed, threshold, inv_keep, b0};
+  const Dropout drop{seed, threshold, inv_keep, b0, static_cast<const uint32_t*>(seed_slot)};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -1439,9 +1446,9 @@ extern "C" int act3d_fused_mha_bwd_bf16(
     const void* stats, const void* delta, const void* mask, void* dq,
     void* dk, void* dv, void* work, int B, int L, int S, int H, int d,
     int key_warps, int rows_per_split, int nsplit, int dropout, int group, int dq_group,
-    int dq_chunk, int dq_nsplit, unsigned int seed,
+    int dq_chunk, int dq_nsplit, unsigned int seed, const void* seed_slot,
     unsigned int threshold, float inv_keep, unsigned int b0, void* stream) {
-  const Dropout drop{seed, threshold, inv_keep, b0};
+  const Dropout drop{seed, threshold, inv_keep, b0, static_cast<const uint32_t*>(seed_slot)};
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);

@@ -126,6 +126,7 @@ struct Dropout {
   uint32_t threshold;
   float inv_keep;
   uint32_t b0;  // the rows' offset in the global batch (data parallelism)
+  const uint32_t* slot;  // the seed in device memory (the entries' seed_slot), or null
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -196,8 +197,9 @@ mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t rk_a = 0u, rk_b = 0u;
   if (DROPOUT) {
-    rk_a = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_a);
-    rk_b = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_b);
+    const uint32_t seed = act3d_dropout_seed(drop.seed, drop.slot);
+    rk_a = act3d_dropout_row_key(seed, drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(seed, drop.b0 + b, h, row_b);
   }
 
   const float* k_b = k + (size_t)b * S * E + h * d;
@@ -525,8 +527,9 @@ mha_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t rk_a = 0u, rk_b = 0u;
   if (DROPOUT) {
-    rk_a = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_a);
-    rk_b = act3d_dropout_row_key(drop.seed, drop.b0 + b, h, row_b);
+    const uint32_t seed = act3d_dropout_seed(drop.seed, drop.slot);
+    rk_a = act3d_dropout_row_key(seed, drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(seed, drop.b0 + b, h, row_b);
   }
 
   const uint16_t* k_b = k + (size_t)b * S * E + h * d;
@@ -868,8 +871,9 @@ mha_fwd_bf16_wgmma_kernel(const WgFwdArgs a) {
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t rk_a = 0u, rk_b = 0u;
   if (DROPOUT) {
-    rk_a = act3d_dropout_row_key(a.drop.seed, a.drop.b0 + b, h, row_a);
-    rk_b = act3d_dropout_row_key(a.drop.seed, a.drop.b0 + b, h, row_b);
+    const uint32_t seed = act3d_dropout_seed(a.drop.seed, a.drop.slot);
+    rk_a = act3d_dropout_row_key(seed, a.drop.b0 + b, h, row_a);
+    rk_b = act3d_dropout_row_key(seed, a.drop.b0 + b, h, row_b);
   }
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -1141,19 +1145,23 @@ bool bad_args(int B, int L, int S, int H, int d, int warps, int chunk, int nspli
 // `work` holds nsplit * B * L * (E + 2H) floats: the partial accumulators,
 // then the partial (m, l).  dropout != 0 selects the dropout instantiation
 // with the keep threshold, 1/(1-rate) and the batch offset b0 computed on
-// the host.  stats may be null where dropout is 0 (the core): then no stats are written.
+// the host, and the seed: `seed`, or, where `seed_slot` is not null, the
+// uint32 word it points to in device memory, read when the kernels run (a
+// CUDA graph captured over it drops with the seed the slot holds at each
+// replay).  stats may be null where dropout is 0 (the core): then no stats are written.
 // Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int act3d_fused_mha_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* mask,
                                        void* out, void* stats, void* work, int B,
                                        int L, int S, int H, int d, int warps,
                                        int chunk, int nsplit, int dropout,
-                                       unsigned int seed, unsigned int threshold,
-                                       float inv_keep, unsigned int b0, void* stream) {
+                                       unsigned int seed, const void* seed_slot,
+                                       unsigned int threshold, float inv_keep,
+                                       unsigned int b0, void* stream) {
   if (bad_args(B, L, S, H, d, warps, chunk, nsplit, stats, work, dropout)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop{seed, threshold, inv_keep, b0};
+  const Dropout drop{seed, threshold, inv_keep, b0, static_cast<const uint32_t*>(seed_slot)};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -1198,9 +1206,10 @@ extern "C" int act3d_fused_mha_fwd_bf16(const void* q, const void* k,
                                         void* out, void* stats, void* work, int B,
                                         int L, int S, int H, int d, int warps,
                                         int chunk, int nsplit, int dropout, int group,
-                                        int prep, unsigned int seed, unsigned int threshold,
-                                        float inv_keep, unsigned int b0, void* stream) {
-  const Dropout drop{seed, threshold, inv_keep, b0};
+                                        int prep, unsigned int seed, const void* seed_slot,
+                                        unsigned int threshold, float inv_keep,
+                                        unsigned int b0, void* stream) {
+  const Dropout drop{seed, threshold, inv_keep, b0, static_cast<const uint32_t*>(seed_slot)};
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);

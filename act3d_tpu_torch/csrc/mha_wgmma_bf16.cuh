@@ -455,6 +455,7 @@ struct Act3dPrepArgs {
   int B, N, H, d, tiles;
   uint32_t seed, b0, dropout;
   float inv_keep;
+  const uint32_t* seed_slot;  // the seed in device memory (dropout_hash.cuh), or null
 };
 
 // grid (ceil(N / 64), H, B), 128 threads: the record of one head and tile.
@@ -492,7 +493,9 @@ __global__ void __launch_bounds__(128) act3d_prep_kernel(const Act3dPrepArgs p) 
       m = p.stats[row * 2 * p.H + 2 * h];
       r = 1.f / p.stats[row * 2 * p.H + 2 * h + 1];
       dl = p.delta[row * p.H + h];
-      if (p.dropout) rk = act3d_dropout_row_key(p.seed, p.b0 + b, h, n0 + i);
+      if (p.dropout) {
+        rk = act3d_dropout_row_key(act3d_dropout_seed(p.seed, p.seed_slot), p.b0 + b, h, n0 + i);
+      }
     }
     cols[i] = m * kLog2e;
     cols[64 + i] = m;

@@ -1,8 +1,11 @@
-"""Device selection and float32 precision policy for the port's entry points."""
+"""Device selection and float32 precision policy for the port's entry
+points, and the ordering of a stream of one's own against the caller's."""
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Optional
 
 import torch
 
@@ -67,3 +70,22 @@ def resolve_device(device="cuda") -> torch.device:
             torch.cuda.set_device(dev)
         pin_float32()
     return dev
+
+
+@contextlib.contextmanager
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """Run the block on ``stream``, ordered after the caller's current
+    stream at entry and before it at exit, so the caller's work before and
+    after sees the block's results; with None, where the caller is.  CUDA
+    graphs cannot be captured on the legacy default stream, and a side
+    stream of each capture's own would get a cuBLAS workspace of its own."""
+    if stream is None:
+        yield
+        return
+    caller = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        caller.wait_stream(stream)

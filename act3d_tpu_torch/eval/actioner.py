@@ -19,14 +19,13 @@ cuBLAS workspace of its own).
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_stream, resolve_device
 from ..models import Act3D, DiffusionPlanner, compute_trajectory
 from ..models.sampler_graph import SamplerGraphs
 from ..utils.spans import span
@@ -79,19 +78,6 @@ class Actioner:
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-    @contextlib.contextmanager
-    def _own_stream(self):
-        if self._stream is None:
-            yield
-            return
-        caller = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(caller)
-        try:
-            with torch.cuda.stream(self._stream):
-                yield
-        finally:
-            caller.wait_stream(self._stream)
-
     def _mark(self, timed: bool) -> float:
         if timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -121,7 +107,7 @@ class Actioner:
         if self._instr is None:
             raise ValueError("call load_episode first")
         Actioner.keysteps += 1
-        with self._own_stream(), span("keystep"):
+        with on_stream(self._stream), span("keystep"):
             rgbs = self._tensor(rgbs) / 2 + 0.5  # to [0, 1]
             pcds = self._tensor(pcds)
             gripper = self._tensor(gripper)

@@ -14,9 +14,15 @@ kernels: keep = hash bits >= rate * 2^32, kept weights scaled by
 The keep mask is a pure function of (seed, b0 + b, h, row, col) in
 absolute coordinates (``csrc/dropout_hash.cuh``, mirrored by
 :func:`dropout_keep`), so the forward, the backward and the plain versions
-regenerate the same mask whatever their tiling.  ``dropout_b0`` is the
-rows' offset in the global batch: under data parallelism rank r passes
-r x (local batch), so its rows drop what a one-device run drops for them
+regenerate the same mask whatever their tiling.  The seed is an int, a
+launch argument, or a seed slot: a one-element int32 tensor on the device
+(``ops/attention.py::SeedTape``), whose pointer the C entries take beside
+the seed argument and whose word their kernels read when they run, so
+that a CUDA graph captured over the call drops with the seed the slot
+holds at each replay.
+``dropout_b0`` is the rows' offset in the global batch: under data
+parallelism rank r passes r x (local batch), so its rows drop what a
+one-device run drops for them
 (0 on one device, the masks of earlier releases).  The TPU kernel's own bits cannot be
 reproduced; the contract is semantic.
 
@@ -76,6 +82,7 @@ __all__ = [
     "fused_mha_forward_reference",
     "fwd_plan",
     "fwd_plan_bf16",
+    "is_seed_slot",
     "launch_plans",
 ]
 
@@ -106,6 +113,11 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def is_seed_slot(seed) -> bool:
+    """Whether ``seed`` is a seed slot: a one-element int32 tensor."""
+    return isinstance(seed, torch.Tensor) and seed.dtype == torch.int32 and seed.numel() == 1
+
+
 def keep_threshold(rate: float) -> int:
     """Drop with probability ``rate``: bits < rate * 2^32."""
     return min(int(rate * 2.0**32), _M32)
@@ -117,7 +129,10 @@ def dropout_bits(seed: int, b: int, h: int, l: int, s: int, device="cpu", b0: in
     def idx(n, shape, start=0):
         return torch.arange(start, start + n, dtype=torch.int64, device=device).reshape(shape)
 
-    key = _mix32((seed & _M32) ^ _SEED_SALT)  # a Python int: no host-device copy
+    if is_seed_slot(seed):  # hashed on its device: no device-host copy
+        key = _mix32((seed.reshape(()).to(torch.int64) & _M32) ^ _SEED_SALT)
+    else:
+        key = _mix32((seed & _M32) ^ _SEED_SALT)  # a Python int: no host-device copy
     key = _mix32(key ^ idx(b, (b, 1, 1), b0))
     key = _mix32(key ^ idx(h, (1, h, 1)))
     key = _mix32(key ^ idx(l, (1, 1, l)))  # row keys (B, H, L)
@@ -594,15 +609,16 @@ def bwd_plan_bf16(b: int, l: int, s: int, h: int, d: int,
 
 def _entry(source: str, name: str, n_pointers: int, n_ints: int = 9):
     """The C entry ``name`` of ``source``: pointers, ``n_ints`` ints, the
-    dropout seed, threshold, 1/(1-rate) and batch offset b0, then the
+    dropout seed, the seed slot's device pointer (null: the seed argument
+    is the seed), threshold, 1/(1-rate) and batch offset b0, then the
     stream."""
     from . import _build
 
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
-                          ctypes.c_void_p])
+                       + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                          ctypes.c_uint32, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -638,11 +654,14 @@ def _check(q, k, v, num_heads, mask, rate, seed, b0=0):
         raise ValueError("attention over an empty context")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
-    if rate > 0.0 and not isinstance(seed, int):
-        raise ValueError("dropout needs an int dropout_seed")
+    slot = is_seed_slot(seed)
+    if rate > 0.0 and not (isinstance(seed, int) or slot):
+        raise ValueError("dropout needs an int dropout_seed or a seed slot")
     if not 0 <= b0 <= _M32 - b:
         raise ValueError(f"dropout_b0 {b0} outside [0, 2^32 - B]")
     devices = {q.device, k.device, v.device}
+    if rate > 0.0 and slot:
+        devices.add(seed.device)
     if mask is not None:
         if mask.dtype != torch.bool or tuple(mask.shape) != (b, k.shape[1]):
             raise ValueError("key_padding_mask must be a (B, S) bool tensor")
@@ -674,9 +693,13 @@ def _check_cuda(mask, d, dtype, stats=None, **tensors):
 
 
 def _dropout_args(rate, seed, b0=0):
+    """(dropout flag, int seed, the seed slot's pointer or None, threshold,
+    1/(1-rate), b0)."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0, 0
-    return 1, seed & _M32, keep_threshold(rate), 1.0 / (1.0 - rate), b0
+        return 0, 0, None, 0, 1.0, 0
+    if is_seed_slot(seed):
+        return 1, 0, seed.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate), b0
+    return 1, seed & _M32, None, keep_threshold(rate), 1.0 / (1.0 - rate), b0
 
 
 def fused_mha_forward(
@@ -694,8 +717,8 @@ def fused_mha_forward(
 
     key_padding_mask: optional (B, S) bool, True = masked out.
     dropout_rate / dropout_seed: attention-weight dropout with the hash
-    keep mask of that int seed; dropout_b0: the rows' offset in the global
-    batch.
+    keep mask of that int seed or seed slot; dropout_b0: the rows' offset
+    in the global batch.
     Returns out (B, L, E), or (out, stats) with ``return_stats``.
     """
     _check(q, k, v, num_heads, key_padding_mask, dropout_rate, dropout_seed, dropout_b0)

@@ -18,7 +18,10 @@ dropout key, ops/attention.py:247-249) and hands it to the kernel as a
 launch argument, so no host-device sync happens per call; the keep mask
 is the kernels' hash of (seed, dropout_b0 + b, h, row, col), with
 ``dropout_b0`` the rows' offset in the global batch under data
-parallelism (every rank draws the same seed).
+parallelism (every rank draws the same seed).  While a training step is
+captured in a CUDA graph (``train/step_graph.py``), a :class:`SeedTape`
+records: each call still draws its seed on the host, in the same order,
+and hands the kernel the device slot that will hold it at each replay.
 
 ``multi_head_attention.calls`` counts the calls, slot competition or
 not, whatever the core ran on: the kernels count their own launches.
@@ -26,7 +29,8 @@ not, whatever the core ran on: the kernels count their own launches.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +38,65 @@ import torch.nn.functional as F
 from ..kernels.attention import FusedMHA, dropout_keep
 from .rotary import embed_rotary
 
-__all__ = ["AttentionParams", "multi_head_attention"]
+__all__ = ["AttentionParams", "SeedTape", "multi_head_attention"]
+
+SEED_HIGH = 2**31 - 1  # dropout seeds are int31: randint(0, SEED_HIGH)
+SEED_SLOTS = 1024  # the most dropout calls a captured step may make
+
+
+class SeedTape:
+    """The dropout seeds of a step captured in a CUDA graph.
+
+    While :meth:`recording` runs, each dropout call draws its seed from the
+    host generator as it does eagerly, and :meth:`take` hands the kernels
+    the slot that holds the i-th call's seed, a view of ``slots`` (int32 on
+    the device).  Before each replay :meth:`load` fills the ``count`` slots
+    on the current stream: first with the seeds the capture drew, then with
+    ``count`` fresh draws, which are the draws of ``count`` eager calls.
+    Nothing waits on the device: each load stages its seeds in a fresh
+    pinned tensor, which the caching host allocator keeps until the copy
+    has run."""
+
+    active: Optional["SeedTape"] = None  # the tape recording, if any
+
+    def __init__(self, device, capacity: int = SEED_SLOTS):
+        self.slots = torch.zeros(capacity, dtype=torch.int32, device=device)
+        self.count = 0
+        self._captured: List[int] = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        SeedTape.active = self
+        try:
+            yield self
+        finally:
+            SeedTape.active = None
+
+    def take(self, seed: int) -> torch.Tensor:
+        if self.count == len(self.slots):
+            raise RuntimeError(f"a step of more than {len(self.slots)} dropout calls")
+        self._captured.append(seed)
+        self.count += 1
+        return self.slots[self.count - 1:self.count]
+
+    @staticmethod
+    def draw(generator: Optional[torch.Generator], k: int, pin: bool = False) -> torch.Tensor:
+        """k seeds as k calls draw them one by one, int32 on the host (in
+        pinned memory with ``pin``)."""
+        out = torch.empty(k, dtype=torch.int32, pin_memory=pin)
+        return torch.randint(0, SEED_HIGH, (k,), generator=generator, out=out)
+
+    def load(self, generator: Optional[torch.Generator]):
+        if not self.count:
+            return
+        pin = self.slots.is_cuda
+        if self._captured:
+            staged = torch.tensor(self._captured, dtype=torch.int32)
+            staged = staged.pin_memory() if pin else staged
+            self._captured = []
+        else:
+            staged = self.draw(generator, self.count, pin)
+        self.slots[:self.count].copy_(staged, non_blocking=True)
 
 
 class AttentionParams(NamedTuple):
@@ -93,7 +155,9 @@ def multi_head_attention(
     multi_head_attention.calls += 1
     seed = None
     if dropout_rate > 0.0:  # one int31 seed per call, drawn on the host
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        seed = int(torch.randint(0, SEED_HIGH, (1,), generator=generator))
+        if SeedTape.active is not None:
+            seed = SeedTape.active.take(seed)
     e = query.shape[-1]
     scaling = (e // num_heads) ** -0.5
     q = F.linear(query, params.wq, params.bq) * scaling

@@ -1,8 +1,10 @@
 """Training engine: steps, evaluation, checkpoints, logging.
 
 Counterpart of ``act3d_tpu/train/engine.py``: the loss and its backward
-run eagerly (the attention cores through the fused kernels), AdamW
-(``train/optim.py``) steps the trainable params, and checkpoints keep
+run eagerly (the attention cores through the fused kernels) or, where
+:meth:`Trainer.graphable` holds, replay from a CUDA graph of the batch's
+tensors (``train/step_graph.py``); AdamW (``optim.py``) steps the
+trainable params eagerly, and checkpoints keep
 JAX's best/last semantics in ``best.pt`` / ``last.pt`` (JAX writes
 ``.msgpack``); :func:`resume` is the CLIs' ``--checkpoint`` /
 ``--auto_resume``.  With a mesh (``parallel/mesh.py``) each rank steps its
@@ -23,10 +25,12 @@ import torch
 import torch.distributed
 import torch.nn as nn
 
+from ..device import on_stream
 from ..nn.dropout import Generators
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import all_gather_metrics
 from .optim import GradientAccumulator, freeze_backbone, make_optimizer
+from .step_graph import ENTRIES, TrainStepGraphs, batch_key
 from ..utils.spans import span
 
 __all__ = ["GracefulShutdown", "MetricLogger", "Trainer", "resume",
@@ -116,6 +120,28 @@ class _Runner(nn.Module):
         return fn(*args, **kwargs)
 
 
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _step_stream(device: torch.device):
+    """The stream the Trainers of ``device`` run their steps on, one per
+    device and process: a stream gets cuBLAS workspaces of its own, which
+    outlive it."""
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
+
+
+def _hooked(module: nn.Module) -> bool:
+    """Whether a forward, pre-forward or backward hook is registered on
+    any submodule of ``module`` or globally."""
+    from torch.nn.modules import module as mod
+
+    kinds = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks", "_backward_pre_hooks")
+    return (any(getattr(mod, "_global" + kind, None) for kind in kinds)
+            or any(getattr(m, kind, None) for m in module.modules() for kind in kinds))
+
+
 class Trainer:
     """Trainer of one model on one device or over a mesh of ranks.
 
@@ -137,7 +163,15 @@ class Trainer:
       compute_dtype: the dtype the loss function computes in (its
         ``compute_dtype``); under FSDP2 the sharded parameters are gathered
         in it.
+
+    Counters over every Trainer of the process: ``Trainer.eager_steps``,
+    ``.replayed_steps`` (steps whose forward and backward replayed a CUDA
+    graph, a step that captured one included) and ``.captures``.
     """
+
+    eager_steps = 0
+    replayed_steps = 0
+    captures = 0
 
     def __init__(
         self,
@@ -155,12 +189,16 @@ class Trainer:
         compute_dtype: Optional[torch.dtype] = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.rank, self.world = (mesh.get_rank(), mesh.size()) if mesh is not None else (0, 1)
         device = next(model.parameters()).device
+        self._stream = _step_stream(device) if device.type == "cuda" else None
         self.runner = pmesh.shard_module(_Runner(freeze_backbone(model)), mesh, compute_dtype)
         # after sharding: FSDP2 replaces the parameters by DTensors
         self.optimizer = make_optimizer(model, lr=lr, weight_decay=weight_decay)
         self.accumulator = GradientAccumulator(self.optimizer, accumulate_grad_batches)
+        self.graphs = TrainStepGraphs(p for p in model.parameters() if p.requires_grad)
+        self._warm = False  # an eager step has run: kernels loaded, AdamW's state made
         self.generators = Generators.from_seed(seed, device, self.rank, self.world)
         self.step_count = 0
         self.best_loss: Optional[float] = None
@@ -172,20 +210,65 @@ class Trainer:
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward, and an optimizer step every
         ``accumulate_grad_batches`` calls.  The loss comes back as a device
-        tensor (no sync).  Spans: "train.step" around it, "train.forward",
+        tensor (no sync).  On a CUDA device the step runs on the Trainer's
+        stream, ordered after the caller's current stream at entry and
+        before it at exit.  Where :meth:`graphable` holds, the loss and its
+        backward replay from the CUDA graph of the batch's tensors,
+        captured where the same tensors came within the last
+        ``step_graph.SEEN`` steps, while fewer than ``ENTRIES`` graphs
+        exist; a batch whose capture raises runs eagerly from then on.
+        Spans: "train.step" around it; in an eager step "train.forward",
         "train.backward" and "train.optimizer" inside."""
-        with span("train.step"):
+        with span("train.step"), on_stream(self._stream):
             self.runner.train()
-            steps = self.accumulator.count + 1 == self.accumulator.every_k
-            with pmesh.set_gradient_sync(self.runner, steps):
-                with span("train.forward"):
-                    loss, aux = self.runner(self._loss_fn, batch, self.generators)
-                with span("train.backward"):
-                    loss.backward()
-            with span("train.optimizer"):
+            key = batch_key(batch) if self._stream is not None else None
+            again = self.graphs.sighted(key)
+            out = self._graph_step(key, batch) if again and self.graphable() else None
+            if out is None:
+                out = self._eager_step(batch)
+                Trainer.eager_steps += 1
+                self._warm = True
+            else:
                 self.accumulator.step()
+                Trainer.replayed_steps += 1
             self.step_count += 1
-            return {"loss": loss.detach(), **(aux or {})}
+            return out
+
+    def graphable(self) -> bool:
+        """Whether the next step may replay a CUDA graph: a CUDA device, no
+        mesh, no accumulation, an eager step done (kernels loaded, cuBLAS
+        warm, AdamW's state made) and no forward, pre-forward or backward
+        hook on the model, whose Python a replay would skip."""
+        return (self._stream is not None and self.mesh is None
+                and self.accumulator.every_k == 1 and self._warm
+                and not _hooked(self.runner))
+
+    def _eager_step(self, batch) -> Dict[str, torch.Tensor]:
+        steps = self.accumulator.count + 1 == self.accumulator.every_k
+        with pmesh.set_gradient_sync(self.runner, steps):
+            with span("train.forward"):
+                loss, aux = self.runner(self._loss_fn, batch, self.generators)
+            with span("train.backward"):
+                loss.backward()
+        with span("train.optimizer"):
+            self.accumulator.step()
+        return {"loss": loss.detach(), **(aux or {})}
+
+    def _graph_step(self, key, batch) -> Optional[Dict[str, torch.Tensor]]:
+        """The step's outputs from a replay of ``key``'s graph, after its
+        capture where it has none; None where it runs eagerly."""
+        if key not in self.graphs:
+            if len(self.graphs) >= ENTRIES:
+                return None
+
+            def forward_backward(generators):
+                loss, aux = self.runner(self._loss_fn, batch, generators)
+                loss.backward()
+                return loss, aux
+
+            if self.graphs.capture(key, forward_backward, self.generators):
+                Trainer.captures += 1
+        return self.graphs.replay(key, self.generators)
 
     def eval_step(self, batch) -> Dict[str, torch.Tensor]:
         """The metrics of one batch as ``metrics_fn`` returns them
@@ -246,7 +329,8 @@ class Trainer:
 
     def load_checkpoint(self, path: Path):
         """Load a checkpoint written on any mesh: every rank reads the file
-        and keeps its shards."""
+        and keeps its shards.  Drops every CUDA graph of the step."""
+        self.graphs.clear()
         payload = torch.load(Path(path), map_location=next(self.model.parameters()).device,
                              weights_only=True)
         pmesh.load_full_state_dict(self.model, payload["model"])

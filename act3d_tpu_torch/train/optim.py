@@ -61,7 +61,10 @@ class GradientAccumulator:
     averaged before one optimizer step.  Autograd sums them in ``.grad``;
     :meth:`step` divides by k on the k-th call and steps.  A param that got
     no gradient (an FPN level the model does not read) gets a zero one, as
-    in optax's full gradient tree, so AdamW still decays it."""
+    in optax's full gradient tree, so AdamW still decays it.  After the
+    step the gradients are zeroed in place, not freed: a training step
+    replayed from a CUDA graph (``train/step_graph.py``) adds into them
+    where they are."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1):
         if every_k < 1:
@@ -82,7 +85,10 @@ class GradientAccumulator:
                 elif self.every_k > 1:
                     p.grad.div_(self.every_k)
         self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        # a few multi-tensor launches; zero_grad(set_to_none=False) zeroes
+        # each gradient with a launch of its own
+        torch._foreach_zero_([p.grad for group in self.optimizer.param_groups
+                              for p in group["params"] if p.grad is not None])
         self.count = 0
         return True
 

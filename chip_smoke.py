@@ -93,7 +93,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      flags, --train_iters 6 --val_freq 3: finite losses, best.pt / last.pt,
      18 + 18 + 2 launches in every training step, finite evaluations; a
      second call with --train_iters 7 resumes at step 6.  Prints each
-     step's time and its wait in next(feeder), and the peak memory.
+     step's time and its wait in next(feeder), the peak memory, and the
+     training steps run eagerly, replayed from a CUDA graph (the feeder's
+     fresh batch tensors engage train/step_graph.py only where their
+     addresses recur) and captured.
  15. cli_trajectory: the same for main_trajectory.main with
      scripts/train_trajectory.sh's flags (batch 22, emb 120, 6 layers, 6D,
      100 steps, dense interpolation to 50, goal, instructions),
@@ -190,6 +193,15 @@ Data parallelism (--num_devices / --fsdp) adds:
      versions of the whole batch, rows 8-15 (phase 6's and 13b's bounds);
      the drop pattern (v the identity of each head) equal to rows 8-15 of
      the full-batch mask, every drop counted.
+ 13d. kernels_seed_slot (after 13c): the fused-MHA forward and backward,
+     float32 and bf16, launched over a seed slot (the one-element device
+     tensor a training step replayed from a CUDA graph reads its seeds
+     from) at every ChainedDiffuser dropout site of both heads at the
+     benchmark cells' batch of 22: bitwise the launches with the seed
+     argument, and against the plain versions of that seed within phase 6's
+     and 13b's bounds; then forward and backward captured once over the
+     slot at the cross site and replayed with three other seeds written to
+     it, each replay bitwise the launches with that seed argument.
   9c. dp_equal (after 9b): small models (phases 8 and 9's widths, a global
      batch of 4, the planner's rows padded unevenly) at world 1 in this
      process against two ranks spawned on the card over gloo with CUDA
@@ -1819,10 +1831,14 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        counted = (Trainer.eager_steps, Trainer.replayed_steps, Trainer.captures)
         with recorded_steps() as steps:
             evals = main_fn(argv + ["--train_iters", str(iters)])["evals"]
         seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        graphs = dict(zip(("eager", "replayed", "captures"), (
+            n - n0 for n, n0 in zip((Trainer.eager_steps, Trainer.replayed_steps,
+                                     Trainer.captures), counted))))
         for st in steps:
             print(f"{name} step {st['step']}: {st['step_s'] * 1e3:.1f} ms, waited "
                   f"{st['data_wait_s'] * 1e3:.1f} ms in next(feeder), loss {st['loss']:.4f}; "
@@ -1849,7 +1865,9 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
           f"mean {np.mean(waits) * 1e3:.1f} ms (steps 1-: {np.mean(waits[1:]) * 1e3:.1f} ms; "
           f"steps 1-{val_freq - 1}: {steady['before_eval']:.1f} ms; steps {iters // 2}-: "
           f"{steady['second_half']:.1f} ms), "
-          f"max {max(waits) * 1e3:.1f} ms; peak memory {peak / 2**20:.1f} MiB; evaluations "
+          f"max {max(waits) * 1e3:.1f} ms; peak memory {peak / 2**20:.1f} MiB; training steps "
+          f"eager / replayed from a CUDA graph / captures {graphs['eager']} / "
+          f"{graphs['replayed']} / {graphs['captures']}; evaluations "
           + ", ".join(f"{ev['seconds']:.2f} s ({metric} {ev['val'][metric]:.4f})"
                       for ev in evals)
           + f"; resumed at step {iters}; whole run {seconds:.1f} s, fixture tree "
@@ -1858,7 +1876,8 @@ def phase_cli(dev, card, name, main_fn, flags, iters, val_freq, per_step, metric
                                          metric=ev["val"][metric]) for ev in evals],
                 warm_step_ms=np.mean(warm) * 1e3, data_wait_ms=np.mean(waits) * 1e3,
                 data_wait_steady_ms=steady,
-                peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step)
+                peak_memory_bytes=peak, seconds=seconds, launches_per_step=per_step,
+                train_graphs=graphs)
 
 
 # The float32 peak device memory (MiB) of phases train and cli_trajectory:
@@ -2794,6 +2813,96 @@ def phase_kernels_dropout_offset(dev, card):
     return seconds
 
 
+SLOT_B = 22  # the benchmark's training cells' batch
+
+
+def phase_kernels_seed_slot(dev, card):
+    """#1d and #2 over a seed slot (train/step_graph.py): at every
+    ChainedDiffuser dropout site of the one-block and the 3-scale x 2-round
+    head, B = 22, float32 and bf16, the launches over a slot holding the
+    seed bitwise equal to the launches with the seed argument, and within
+    the bounds of phase_train_kernels / phase_kernels_bf16 of the plain
+    versions of that seed; then a CUDA graph of the forward and backward
+    over the slot at the cross site, replayed after writing other seeds to
+    the slot, bitwise the seed-argument launches of each."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    e, h, bf = PLANNER_CFG["embedding_dim"], 8, torch.bfloat16
+    d = e // h
+    b = SLOT_B
+    t0 = time.perf_counter()
+
+    def inputs(l, s, dt):
+        q = torch.randn(b, l, e, generator=gen, device=dev) * d ** -0.5
+        k, v, g = (torch.randn(b, n, e, generator=gen, device=dev) for n in (s, s, l))
+        return [x.to(dt) for x in (q, k, v, g)]
+
+    def launches(x, mask, rate, seed):
+        out, stats = fused_mha_forward(*x[:3], h, mask, True, rate, seed)
+        return [out, stats, *fused_mha_backward(*x[:3], out, stats, x[3], h, mask, rate, seed)]
+
+    for i, (site, l, s, kind, rate, _) in enumerate(TRAIN_SHAPES + OPTION_SHAPES):
+        if not rate:
+            continue
+        seed = 1_900_000_000 + i
+        slot = torch.tensor([seed], dtype=torch.int32, device=dev)
+        mask = train_mask(kind, b, s, dev)
+        errs = []
+        for dt in (torch.float32, bf):
+            x = inputs(l, s, dt)
+            got = launches(x, mask, rate, slot)
+            want = launches(x, mask, rate, seed)
+            assert all(torch.equal(a, w) for a, w in zip(got, want)), (site, dt)
+            x32 = [t.float() for t in x]
+            ref_out, ref_stats = fused_mha_forward_reference(*x32[:3], h, mask, rate, seed)
+            out, stats = got[:2]
+            ref_grads = fused_mha_backward_reference(*x32[:3], out.float(), stats, x32[3], h,
+                                                     mask, rate, seed)
+            if dt == torch.float32:
+                torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+                torch.testing.assert_close(stats, ref_stats, atol=ATOL, rtol=RTOL)
+                for g_, w_ in zip(got[2:], ref_grads):
+                    torch.testing.assert_close(g_, w_, atol=BWD_ATOL, rtol=BWD_RTOL)
+                errs.append(_max_errs([(out, ref_out)] + list(zip(got[2:], ref_grads)))[0])
+            else:
+                plain_out, _ = fused_mha_forward_reference(*x[:3], h, mask, rate, seed)
+                plain_grads = fused_mha_backward_reference(*x[:3], out, stats, x[3], h, mask,
+                                                           rate, seed)
+                checks = [bf16_errors(out, plain_out, ref_out)] + [
+                    bf16_errors(g_, p_, w_, BWD_FLOOR)
+                    for g_, p_, w_ in zip(got[2:], plain_grads, ref_grads)]
+                assert all(c["ok"] for c in checks), (site, checks)
+                errs.append(max(c["kernel_vs_f32"] for c in checks))
+        print(f"kernels_seed_slot {site:34s} B={b} L={l} S={s} rate={rate} mask={kind}: slot "
+              f"launches bitwise the seed argument's; vs plain max_abs float32 {errs[0]:.3e}, "
+              f"bf16 (vs float32 plain) {errs[1]:.3e}", flush=True)
+
+    # a graph captured once over the slot drops with the seed written to it
+    l, s = TRAJ_LEN, 3074
+    for dt in (torch.float32, bf):
+        x = inputs(l, s, dt)
+        slot = torch.zeros(1, dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launches(x, None, DROPOUT, slot)  # warm
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                outs = launches(x, None, DROPOUT, slot)
+        torch.cuda.current_stream().wait_stream(side)
+        for seed in (7, 2**31 - 2, 1_234_567_890):
+            slot.fill_(seed)
+            graph.replay()
+            want = launches(x, None, DROPOUT, seed)
+            assert all(torch.equal(a, w) for a, w in zip(outs, want)), (dt, seed)
+        print(f"kernels_seed_slot graph ({dt}, B={b}, L={l}, S={s}): one capture over the "
+              f"slot, 3 replays with other seeds, each bitwise the seed-argument launches",
+              flush=True)
+        del graph
+    seconds = time.perf_counter() - t0
+    print(f"kernels_seed_slot: {seconds:.1f} s | {card}", flush=True)
+    return seconds
+
+
 def _dp_batch(kind):
     if kind == "diffusion":
         batch = synthetic_trajectory_batch(DP_BATCH, 2, (64, 64), 8, seed=SEED + 3)
@@ -3264,6 +3373,7 @@ def main() -> int:
     chunked_row = phase_chunked(dev, card)
     bf16_rows = phase_kernels_bf16(dev, card, sm_mhz)
     offset_s = phase_kernels_dropout_offset(dev, card)
+    slot_s = phase_kernels_seed_slot(dev, card)
     phase_small_train(dev)
     phase_small_keypose(dev)
     phase_small_bf16(dev)
@@ -3519,7 +3629,8 @@ def main() -> int:
                       cli_trajectory_host_path=dict(cli_traj_hp, workers=workers),
                       host_path=host, dp_equal=dp_equal, cli_dp=cli_dp,
                       preprocess=preprocess, profile=profile, float32_peaks_mib=peaks,
-                      kernels_dropout_offset_seconds=offset_s)
+                      kernels_dropout_offset_seconds=offset_s,
+                      kernels_seed_slot_seconds=slot_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

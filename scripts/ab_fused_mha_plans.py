@@ -186,8 +186,8 @@ def variant_fn(lib, source, bf16=False):
     ints = 9 + (0 if not bf16 else 2 if fwd else 4)  # the bf16 entries' body and plan ints
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * (7 if fwd else 11) + [ctypes.c_int] * ints
-                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
-                      ctypes.c_void_p])
+                   + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_uint32, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -267,7 +267,7 @@ def test_bf16_wrappers_tell_the_c_entries_their_plans(monkeypatch):
                                   int(fp.prep))
         else:
             assert args[7:18] == (b, l, s, h, d, fp.warps, fp.chunk, fp.nsplit, 1, 0, 0)
-        assert args[18:] == (5, attention.keep_threshold(0.1), 1.0 / 0.9, 3, 7)
+        assert args[18:] == (5, None, attention.keep_threshold(0.1), 1.0 / 0.9, 3, 7)
         assert sizes[-1] == fp.workspace_floats
         stats = torch.zeros(b, l, 2 * h)
         bp = bwd_plan_bf16(b, l, s, h, d)
@@ -279,7 +279,7 @@ def test_bf16_wrappers_tell_the_c_entries_their_plans(monkeypatch):
         else:
             assert args[11:24] == (b, l, s, h, d, bp.key_warps, bp.rows_per_split, bp.nsplit,
                                    0, 0, 0, 1, 1)
-        assert len(args) == 24 + 5  # then seed, threshold, 1 / keep, b0, stream
+        assert len(args) == 24 + 6  # then seed, seed slot, threshold, 1 / keep, b0, stream
         assert sizes[-1] == bp.workspace_floats
         assert (args[10] is None) == (bp.workspace_floats == 0)
 

@@ -153,7 +153,7 @@ def test_gradient_accumulation_averages_micro_batches():
     ((twin(xs[0]).square().sum() + twin(xs[1]).square().sum()) / 2).backward()
     opt.step()
     torch.testing.assert_close(lin.weight, twin.weight, atol=1e-7, rtol=0)
-    assert lin.weight.grad is None
+    assert not lin.weight.grad.any()  # zeroed in place for the next micro-batches
 
 
 def test_dropout_follows_training_mode_and_generators():

@@ -1,11 +1,14 @@
 """Device selection and float32 precision policy for the port's entry
-points, and the ordering of a stream of one's own against the caller's."""
+points, and the stream rule: CUDA graphs cannot be captured on the legacy
+default stream, and each stream gets cuBLAS workspaces of its own, which
+outlive it, so captured or replayed work (``Trainer.step``,
+``Actioner.predict``) runs on :func:`graph_stream` through :func:`on_stream`."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -72,13 +75,25 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def graph_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """The stream of ``device`` that captured work runs on, one per device
+    and process; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
 @contextlib.contextmanager
 def on_stream(stream: Optional["torch.cuda.Stream"]):
     """Run the block on ``stream``, ordered after the caller's current
     stream at entry and before it at exit, so the caller's work before and
-    after sees the block's results; with None, where the caller is.  CUDA
-    graphs cannot be captured on the legacy default stream, and a side
-    stream of each capture's own would get a cuBLAS workspace of its own."""
+    after sees the block's results; with None, where the caller is."""
     if stream is None:
         yield
         return

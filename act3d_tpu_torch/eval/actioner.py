@@ -9,12 +9,9 @@ per keystep.
 
 The JAX ``fused_dispatch`` option (both models as one jitted program) has
 no meaning without ``jit`` and is dropped: PyTorch enqueues the two
-models back to back on one stream.  On a CUDA device that stream is the
-Actioner's own, ordered after the caller's current stream at entry and
-before it at exit, and the sampler replays its denoising steps from CUDA
-graphs captured on it (``models/sampler_graph.py``: CUDA graphs cannot be
-captured on the legacy default stream, and a side stream would get a
-cuBLAS workspace of its own).
+models back to back on one stream.  On a CUDA device that stream is
+``device.py::graph_stream``, and the sampler replays its denoising steps
+from CUDA graphs captured on it (``models/sampler_graph.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..device import on_stream, resolve_device
+from ..device import graph_stream, on_stream, resolve_device
 from ..models import Act3D, DiffusionPlanner, compute_trajectory
 from ..models.sampler_graph import SamplerGraphs
 from ..utils.spans import span
@@ -64,7 +61,7 @@ class Actioner:
         self._task_str = None
         # host seconds of each model in the last predict(timed=True)
         self.last_phase_seconds: Optional[Dict[str, float]] = None
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._stream = graph_stream(self.device)
         self._graphs = SamplerGraphs()
 
     def load_episode(self, task_str: str, variation: int):

@@ -61,6 +61,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import count_launch
+from ..utils.graphs import counted
 
 __all__ = [
     "AttentionCore",
@@ -732,8 +733,7 @@ def fused_mha_forward(
     return (out, stats) if return_stats else out
 
 
-fused_mha_forward.launches = 0  # float32 kernel launches since the last reset
-fused_mha_forward.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(fused_mha_forward, "launches", "launches_bf16")
 
 
 
@@ -829,8 +829,7 @@ def fused_mha_backward(q, k, v, out, stats, grad_out, num_heads,
                        dropout_rate, dropout_seed, b0=dropout_b0)
 
 
-fused_mha_backward.launches = 0  # float32 kernel launches since the last reset
-fused_mha_backward.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(fused_mha_backward, "launches", "launches_bf16")
 
 
 def _launch_bwd(q, k, v, out, stats, grad_out, num_heads, mask, rate, seed,
@@ -963,8 +962,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return AttentionCore.apply(q, k, v, mask)
 
 
-attention_core.launches = 0  # float32 kernel launches since the last reset
-attention_core.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(attention_core, "launches", "launches_bf16")
 
 
 class FusedMHA(torch.autograd.Function):

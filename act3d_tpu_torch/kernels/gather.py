@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from . import count_launch
+from ..utils.graphs import counted
 
 __all__ = ["scatter_rows", "scatter_rows_chunked", "scatter_rows_reference",
            "scatter_rows_sorted"]
@@ -154,8 +155,7 @@ def scatter_rows_sorted(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> to
     return out
 
 
-scatter_rows_sorted.launches = 0  # float32 kernel launches since the last reset
-scatter_rows_sorted.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(scatter_rows_sorted, "launches", "launches_bf16")
 
 
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Tensor:
@@ -168,8 +168,7 @@ def scatter_rows(g: torch.Tensor, idx: torch.Tensor, out_rows: int) -> torch.Ten
     return out
 
 
-scatter_rows.launches = 0  # float32 kernel launches since the last reset
-scatter_rows.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(scatter_rows, "launches", "launches_bf16")
 
 
 def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
@@ -191,5 +190,4 @@ def scatter_rows_chunked(g: torch.Tensor, idx: torch.Tensor, out_rows: int,
     return out
 
 
-scatter_rows_chunked.launches = 0  # float32 kernel launches since the last reset
-scatter_rows_chunked.launches_bf16 = 0  # bf16 kernel launches since the last reset
+counted(scatter_rows_chunked, "launches", "launches_bf16")

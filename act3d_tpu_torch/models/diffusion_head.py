@@ -28,10 +28,9 @@ The selection runs through the parameter-free submodule ``traj_neighbours``
 forward hook sees the (B, k) indices the head gathers; it adds no entry to
 the state dict.  Spans: ``planner.block.scale{n}`` around each block of a
 head of several blocks, ``planner.knn`` around each selection and its two
-gathers; the one-block head opens none.  Counters:
+gathers; the one-block head opens none.  Counters (``utils/graphs.py``):
 ``DiffusionHead.evaluations`` (``denoise`` calls) and
-``ops.geometry.find_traj_nn.calls`` (selections); a CUDA-graph replay of
-the sampler's step adds what its capture counted.
+``ops.geometry.find_traj_nn.calls`` (selections).
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ from ..nn.dropout import Generators, dropout
 from ..nn.layers import ParallelAttention, active_generators
 from ..ops.geometry import find_traj_nn
 from ..ops.rotary import rotary_pe_3d, sinusoidal_pos_emb
+from ..utils.graphs import counted
 from ..utils.spans import NO_SPAN, span
 
 
@@ -69,8 +69,6 @@ class TrajectoryNeighbours(nn.Module):
 
 
 class DiffusionHead(nn.Module):
-    evaluations = 0  # ``denoise`` calls in this process
-
     def __init__(
         self,
         backbone: str = "clip",
@@ -260,3 +258,6 @@ class DiffusionHead(nn.Module):
         rot = getattr(self, f"rot_regressor_{i}_fc2")(
             drop(F.relu(getattr(self, f"rot_regressor_{i}_fc1")(rot_feats))))
         return torch.cat([pos, rot], dim=-1)
+
+
+counted(DiffusionHead, "evaluations")  # ``denoise`` calls

@@ -13,9 +13,7 @@ On the first keystep of a signature the first step runs eagerly through the
 same body (it warms cuBLAS, the kernel loader and the allocator), both steps
 are captured, and the rest replay.  A signature whose step cannot be
 captured runs its steps eagerly from then on.  The capture and the eager
-work run on the caller's current stream, which must not be the legacy
-default stream: ``eval/actioner.py`` runs its keystep on a stream of its
-own, so no second stream (and no second cuBLAS workspace) is made.
+work run on the caller's current stream (``device.py::graph_stream``).
 
 The graphs read the model's own parameter tensors: an in-place
 ``load_state_dict`` (the default) keeps them valid; moving or replacing the
@@ -23,10 +21,7 @@ parameters (``.to()`` another device, ``assign=True``) needs a new
 ``SamplerGraphs``.
 
 Counters: ``compute_trajectory.eager_steps`` / ``.replayed_steps`` /
-``.captures``.  A replay adds to ``multi_head_attention.calls``, the
-fused-MHA launch counters, ``DiffusionHead.evaluations`` and
-``find_traj_nn.calls`` what one captured step counted, so they count the
-calls, launches and selections that run, replayed or not.
+``.captures``; a replay adds what its capture counted (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -35,25 +30,11 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..kernels.attention import fused_mha_forward
-from ..ops.attention import multi_head_attention
-from ..ops.geometry import find_traj_nn
+from ..utils.graphs import ENTRIES, capture
 from ..utils.spans import span
-from .diffusion_head import DiffusionHead
 from .diffusion_planner import DiffusionPlanner, compute_trajectory, reverse_step
 
 __all__ = ["SamplerGraphs"]
-
-ENTRIES = 4  # input signatures kept (a demo's padded length can change it)
-
-# the counters a denoising step moves
-COUNTERS = ((multi_head_attention, "calls"), (fused_mha_forward, "launches"),
-            (fused_mha_forward, "launches_bf16"), (DiffusionHead, "evaluations"),
-            (find_traj_nn, "calls"))
-
-
-def _counts() -> List[int]:
-    return [getattr(obj, name) for obj, name in COUNTERS]
 
 
 def _map(fn, context: Dict[str, object]) -> Dict[str, object]:
@@ -81,7 +62,6 @@ class _Step:
         self.context = _map(torch.empty_like, context)
         self.step = torch.zeros(1, dtype=torch.long, device=trajectory.device)
         self.graphs: Optional[tuple] = None  # (t > 0, final) once captured
-        self.counted: List[List[int]] = []  # what each capture added to COUNTERS
 
     def load(self, trajectory, trajectory_mask, context, cond_data, cond_mask, eps):
         for dst, src in zip(self.inputs + _leaves(self.context),
@@ -101,25 +81,12 @@ class _Step:
             self.step.add_(1)
 
     def capture(self):
-        before = _counts()
-        graphs, counted, pool = [], [], None
-        try:
-            for final in (False, True):
-                start = _counts()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool,
-                                      stream=torch.cuda.current_stream()):
-                    self.body(final)
-                pool = graph.pool()  # replayed one after the other: one pool
-                graphs.append(graph)
-                counted.append([a - b for a, b in zip(_counts(), start)])
-        except RuntimeError:
-            return  # graphs stays None: the steps run eagerly
-        finally:
-            for (obj, name), count in zip(COUNTERS, before):
-                setattr(obj, name, count)  # a capture runs nothing
-        self.graphs, self.counted = tuple(graphs), counted
-        compute_trajectory.captures += 2
+        first = capture(lambda: self.body(False))
+        # replayed one after the other: one pool
+        final = first and capture(lambda: self.body(True), first.graph.pool())
+        if final:  # else graphs stays None: the steps run eagerly
+            self.graphs = (first, final)
+            compute_trajectory.captures += 2
 
     def run(self, final: bool):
         with span("sampler.denoise_step"):
@@ -128,8 +95,6 @@ class _Step:
                 compute_trajectory.eager_steps += 1
                 return
             self.graphs[final].replay()
-        for (obj, name), n in zip(COUNTERS, self.counted[final]):
-            setattr(obj, name, getattr(obj, name) + n)
         compute_trajectory.replayed_steps += 1
 
 

@@ -23,8 +23,8 @@ captured in a CUDA graph (``train/step_graph.py``), a :class:`SeedTape`
 records: each call still draws its seed on the host, in the same order,
 and hands the kernel the device slot that will hold it at each replay.
 
-``multi_head_attention.calls`` counts the calls, slot competition or
-not, whatever the core ran on: the kernels count their own launches.
+``multi_head_attention.calls`` counts the calls, slot competition or not,
+whatever the core ran on (``utils/graphs.py``); the kernels count launches.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import FusedMHA, dropout_keep
+from ..utils.graphs import counted
 from .rotary import embed_rotary
 
 __all__ = ["AttentionParams", "SeedTape", "multi_head_attention"]
@@ -176,4 +177,4 @@ def multi_head_attention(
     return F.linear(out, params.wo, params.bo)
 
 
-multi_head_attention.calls = 0  # calls in this process, whichever core they took
+counted(multi_head_attention, "calls")

@@ -4,7 +4,7 @@ Counterpart of ``act3d_tpu/ops/geometry.py::find_traj_nn``,
 ``topk_nearest_context``, ``gather_tokens`` and ``find_cylinder_points``.
 Exact selections keep JAX's order among equal distances (``lax.top_k``:
 the lower index first).  ``find_traj_nn.calls`` counts the trajectory-nearest
-selections made in this process.
+selections (``utils/graphs.py``).
 The token gather's backward is the row-scatter kernel of
 ``kernels/gather.py`` at every width: the TPU routing floor (``c >= 16``)
 and the ``ACT3D_ONEHOT_GATHER_BWD`` flag stay out of the port.
@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.gather import scatter_rows, scatter_rows_sorted
+from ..utils.graphs import counted
 
 __all__ = ["find_traj_nn", "topk_nearest_context", "gather_tokens", "find_cylinder_points"]
 
@@ -41,7 +42,7 @@ def find_traj_nn(trajectory: torch.Tensor, point_cloud: torch.Tensor,
     return _nearest(torch.amin(d2, dim=1), nn_per_step * trajectory.shape[1])
 
 
-find_traj_nn.calls = 0  # selections in this process (a graph replay adds its capture's)
+counted(find_traj_nn, "calls")
 
 
 def topk_nearest_context(anchor: torch.Tensor, point_cloud: torch.Tensor, k: int,

@@ -25,7 +25,7 @@ import torch
 import torch.distributed
 import torch.nn as nn
 
-from ..device import on_stream
+from ..device import graph_stream, on_stream
 from ..nn.dropout import Generators
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import all_gather_metrics
@@ -120,18 +120,6 @@ class _Runner(nn.Module):
         return fn(*args, **kwargs)
 
 
-_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-def _step_stream(device: torch.device):
-    """The stream the Trainers of ``device`` run their steps on, one per
-    device and process: a stream gets cuBLAS workspaces of its own, which
-    outlive it."""
-    if device not in _STREAMS:
-        _STREAMS[device] = torch.cuda.Stream(device)
-    return _STREAMS[device]
-
-
 def _hooked(module: nn.Module) -> bool:
     """Whether a forward, pre-forward or backward hook is registered on
     any submodule of ``module`` or globally."""
@@ -192,7 +180,7 @@ class Trainer:
         self.mesh = mesh
         self.rank, self.world = (mesh.get_rank(), mesh.size()) if mesh is not None else (0, 1)
         device = next(model.parameters()).device
-        self._stream = _step_stream(device) if device.type == "cuda" else None
+        self._stream = graph_stream(device)
         self.runner = pmesh.shard_module(_Runner(freeze_backbone(model)), mesh, compute_dtype)
         # after sharding: FSDP2 replaces the parameters by DTensors
         self.optimizer = make_optimizer(model, lr=lr, weight_decay=weight_decay)
@@ -210,11 +198,10 @@ class Trainer:
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward, and an optimizer step every
         ``accumulate_grad_batches`` calls.  The loss comes back as a device
-        tensor (no sync).  On a CUDA device the step runs on the Trainer's
-        stream, ordered after the caller's current stream at entry and
-        before it at exit.  Where :meth:`graphable` holds, the loss and its
-        backward replay from the CUDA graph of the batch's tensors,
-        captured where the same tensors came within the last
+        tensor (no sync).  On a CUDA device the step runs on
+        ``device.py::graph_stream``.  Where :meth:`graphable` holds, the
+        loss and its backward replay from the CUDA graph of the batch's
+        tensors, captured where the same tensors came within the last
         ``step_graph.SEEN`` steps, while fewer than ``ENTRIES`` graphs
         exist; a batch whose capture raises runs eagerly from then on.
         Spans: "train.step" around it; in an eager step "train.forward",

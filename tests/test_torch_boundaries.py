@@ -15,8 +15,12 @@
   instead of drifting to the CPU (``preprocess_instructions`` too, with
   ``--device cuda`` or no ``--device``), and ``chip_smoke.py`` exits
   non-zero without printing a result.
+* No module under ``act3d_tpu_torch/train/`` imports
+  ``models/sampler_graph.py``: the graph mechanics both share live in
+  ``utils/graphs.py``.
 """
 
+import ast
 import os
 import shutil
 import subprocess
@@ -178,3 +182,24 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     proc = _run(["chip_smoke.py"], tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _imported(path: Path, package: str):
+    """The modules ``path`` (a module of ``package``) names in its imports,
+    relative ones resolved."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = package.split(".")
+            base = ".".join(parts[:len(parts) - node.level + 1] if node.level else [])
+            module = ".".join(x for x in (base, node.module) if x)
+            yield module
+            yield from (f"{module}.{alias.name}" for alias in node.names)
+
+
+def test_training_modules_do_not_import_the_sampler_graph():
+    offenders = [path.name for path in sorted((REPO / "act3d_tpu_torch" / "train").glob("*.py"))
+                 if "act3d_tpu_torch.models.sampler_graph" in
+                 _imported(path, "act3d_tpu_torch.train")]
+    assert not offenders, offenders

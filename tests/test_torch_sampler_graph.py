@@ -13,8 +13,10 @@ training CLI's sampler eval run every step eagerly.
 On the card (``-m gpu``; skipped without one): the graph path of
 ``compute_trajectory`` against its eager loop, bitwise, with the ``noise``
 override, with a generator, over two observations in a row, with a padded
-mask, and for the multi-scale head; 2 captures over 5 keysteps and 1918
-attention calls a keystep at the serving widths.  Nothing here imports JAX:
+mask, and for the multi-scale head; a step that cannot be captured warns
+and runs eagerly, bitwise; 2 captures over 5 keysteps and 1918 attention
+calls a keystep at the serving widths; the Actioner and the Trainer run on
+the device's one graph stream.  Nothing here imports JAX:
 
     python -m pytest --noconftest tests/test_torch_sampler_graph.py -m gpu
 """
@@ -23,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from act3d_tpu_torch.device import graph_stream
 from act3d_tpu_torch.eval.actioner import Actioner
 from act3d_tpu_torch.models import Act3D, DiffusionPlanner, compute_trajectory
 from act3d_tpu_torch.models.diffusion_planner import reverse_step
+from act3d_tpu_torch.models import sampler_graph
 from act3d_tpu_torch.models.sampler_graph import SamplerGraphs, _Step
 from act3d_tpu_torch.ops.attention import multi_head_attention
 from act3d_tpu_torch.ops.schedulers import CLIP_SAMPLE_RANGE, make_ddpm_schedule
@@ -336,6 +340,37 @@ def test_multi_scale_head_equals_the_eager_loop(card):
         assert torch.equal(got, want), (got - want).abs().max().item()
     assert counted[:3] in ([1, 199, 2], [200, 0, 0]), counted
     print(f"multi-scale head: eager, replayed, captures {counted[:3]}")
+
+
+@gpu
+def test_a_step_that_cannot_be_captured_warns_and_runs_eagerly(card, monkeypatch):
+    """A step that reads a number on the host is refused under capture: the
+    capture warns with the error, and both observations run every step
+    eagerly (none replayed, none captured), bitwise the eager loop."""
+    step = sampler_graph.reverse_step
+
+    def host_reading(*args, **kwargs):
+        out = step(*args, **kwargs)
+        float(out.sum())
+        return out
+
+    monkeypatch.setattr(sampler_graph, "reverse_step", host_reading)
+    with pytest.warns(UserWarning, match="not captured, runs eagerly"):
+        pairs, counted = _graph_and_eager("6D")
+    for got, want in pairs:
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    assert counted[:3] == [200, 0, 0]
+
+
+@gpu
+def test_actioner_and_trainer_run_on_the_devices_graph_stream(card):
+    from act3d_tpu_torch.train.engine import Trainer
+
+    model = torch.nn.Linear(2, 2).cuda()
+    trainer = Trainer(lambda batch, generators: (model(batch).sum(), {}), model)
+    stream = graph_stream(torch.device("cuda"))
+    assert _actioner("cuda", 3)._stream is stream and trainer._stream is stream
+    assert graph_stream(torch.device("cuda", torch.cuda.current_device())) is stream
 
 
 @gpu

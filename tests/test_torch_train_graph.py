@@ -41,11 +41,11 @@ from act3d_tpu_torch.kernels.attention import (
 )
 from act3d_tpu_torch.models import DiffusionPlanner
 from act3d_tpu_torch.ops.attention import SEED_HIGH, SeedTape
-from act3d_tpu_torch.train import step_graph
 from act3d_tpu_torch.train.engine import Trainer
 from act3d_tpu_torch.train.flagship import diffusion_loss_fn
 from act3d_tpu_torch.train.optim import GradientAccumulator
 from act3d_tpu_torch.train.step_graph import ENTRIES, SEEN, TrainStepGraphs, batch_key
+from act3d_tpu_torch.utils import graphs
 from act3d_tpu_torch.utils.testing import BOUNDS, synthetic_trajectory_batch
 
 NCAM, IMAGE, N_INSTR, LENGTH, BATCH = 1, 64, 7, 8, 2
@@ -325,9 +325,9 @@ def _draws_by_step(head, graphed, monkeypatch, steps=6):
                 SeedTape.active = None
             torch.cuda.synchronize()
             if graphed and i > 0:
-                entry = trainer.graphs._steps[batch_key(batch)]
+                tape = trainer.graphs._steps[batch_key(batch)].out[-1]  # (loss, aux, tape)
                 captured = captured or list(draws)
-                seeds = entry.tape.slots[:entry.tape.count].tolist()
+                seeds = tape.slots[:tape.count].tolist()
                 out.append((seeds, [d.cpu() for d in captured]))
             else:
                 out.append((host.seeds, [d.cpu() for d in draws]))
@@ -420,7 +420,7 @@ def test_one_step_replayed_equals_eager(card, monkeypatch, case):
     loss_g, grads_g = _step_grads(trainer, batch, monkeypatch)
     assert [a - b for a, b in zip(_counts(), before)] == [0, 1, 1]
     if dropout_calls is not None:
-        assert trainer.graphs._steps[batch_key(batch)].tape.count == dropout_calls
+        assert trainer.graphs._steps[batch_key(batch)].out[-1].count == dropout_calls
     monkeypatch.setattr(trainer, "graphable", lambda: False)
     eager = []
     for _ in range(3):
@@ -512,12 +512,13 @@ def test_a_failed_capture_leaves_the_generators_where_eager_would(card):
     eager.graphable = lambda: False
     batch = _batch(1, "cuda")
     before = _counts()
-    for _ in range(3):
-        a, b = graphed.step(batch), eager.step(batch)
-        assert a["host"] == b["host"]
-        for gen_a, gen_b in ((graphed.generators.host, eager.generators.host),
-                             (graphed.generators.device, eager.generators.device)):
-            assert torch.equal(gen_a.get_state(), gen_b.get_state())
+    with pytest.warns(UserWarning, match="not captured, runs eagerly"):
+        for _ in range(3):
+            a, b = graphed.step(batch), eager.step(batch)
+            assert a["host"] == b["host"]
+            for gen_a, gen_b in ((graphed.generators.host, eager.generators.host),
+                                 (graphed.generators.device, eager.generators.device)):
+                assert torch.equal(gen_a.get_state(), gen_b.get_state())
     assert [a - b for a, b in zip(_counts(), before)] == [6, 0, 0]
     assert list(graphed.graphs._steps.values()) == [None]
 
@@ -528,7 +529,7 @@ def test_replays_count_what_eager_steps_count(card, head):
     """A replayed step adds to the attention calls, the kernels' launches,
     the denoiser evaluations and the selections what an eager step adds:
     4 selections an evaluation in the 3 x 2 head, none in the 1 x 1."""
-    counters = step_graph.COUNTERS
+    counters = graphs.COUNTERS
     trainer = _trainer(head, "cuda")
     batch = _batch(1, "cuda")
     per_step = []
